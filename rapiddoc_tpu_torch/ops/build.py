@@ -1,0 +1,78 @@
+"""Build a CUDA source of this package with nvcc and load it with ctypes.
+
+Each source under ``csrc/`` exposes a plain ``extern "C"`` launcher and
+includes no PyTorch header, so one nvcc call takes seconds. The shared
+library goes to ``_build/<name>-<source hash>/`` beside the package and
+is reused while the source is unchanged. Nothing here runs at import
+time: the first launch of a kernel builds it.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    """nvcc from PATH, else from CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found (looked in PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)"
+    )
+
+
+def library_path(name: str) -> Path:
+    """Where the build of ``csrc/<name>.cu`` at its current content goes."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}" / f"lib{name}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a build of this content exists.
+    Raises RuntimeError carrying nvcc's output when it fails."""
+    out = library_path(name)
+    if out.is_file():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build if needed and load ``lib<name>.so`` once per process."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name)))
+            _loaded[name] = lib
+        return lib
