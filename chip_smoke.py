@@ -11,8 +11,10 @@ Phases, one JSON line each:
           demo (V = 96) and published (V = 18710) vocabularies, timed
           beside the plain version and a PyTorch library yardstick
   ocr     the OCR system on the committed fixture pages: the bf16 main
-          path (timed, kernel launches counted) and an fp32 run held to
-          the JAX package's golden output
+          path (timed, kernel launches counted) and an fp32 run, each
+          held to the JAX package's golden output in its dtype, and the
+          det and rec models' bf16-vs-fp32 error held to the JAX
+          package's own
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
 that last line. Needs the repository checkout around it and a card.
@@ -31,6 +33,26 @@ VOCABS = (96, 18710)  # demo charset; published ppocrv6_small_dict.txt
 H100_BF16_FLOPS = 989e12
 H100_BYTES_PER_S = 3.35e12
 TIMED_RUNS = 3
+CONF_RTOL, CONF_ATOL = 1e-5, 1e-8  # K1's conf against its plain version
+# The bf16 main path against the JAX package's bf16 golden. The two
+# frameworks round bf16 at different places, and the demo models'
+# near-tie characters flip under any such change: XLA's own
+# --xla_allow_excess_precision=false moves 13 of the 74 golden lines. So
+# these limits come from the port's bf16 on the CPU against the same
+# golden (2 boxes unmatched, 51/74 lines equal, CER 0.0374; both read by
+# `python tests/test_torch_ocr_system.py --compare`), with a margin of 2
+# boxes, 7 lines and 0.0126 CER for the card's summation order.
+BF16_MAX_UNMATCHED, BF16_MIN_EXACT, BF16_MAX_CER = 4, 0.60, 0.05
+# The text limits above would pass a bf16 path that ran in fp32, so the
+# models are also held at the tensor level: the bf16-vs-fp32 relative
+# error of the det prob map and of the rec features must lie within this
+# band of the JAX package's own (the golden's "bf16_rel_err"). The
+# port's reading on the CPU is 0.86 (det) and 0.77 (rec) of it. A path
+# that rounds only its weights to bf16 and computes in fp32 falls below
+# the band, and full fp32 far below it.
+BF16_GAP_BAND = (0.6, 1.5)
+DET_MEAN = (0.485, 0.456, 0.406)
+DET_STD = (0.229, 0.224, 0.225)
 
 
 class SmokeFailure(Exception):
@@ -98,7 +120,7 @@ def phase_ctc_head() -> dict:
     import numpy as np
     import torch
 
-    from rapiddoc_tpu_torch.ops.ctc_head import ctc_argmax_plain, fused_ctc_argmax
+    from rapiddoc_tpu_torch.ops.ctc_head import _splits, ctc_argmax_plain, fused_ctc_argmax
 
     def library(x, w, b):
         # one PyTorch matmul + softmax reduction: the yardstick, never
@@ -122,15 +144,22 @@ def phase_ctc_head() -> dict:
         decisive = (top2[:, 0] - top2[:, 1]) > 1e-3
         id_mismatch = int(((ids != pids) & decisive).sum())
         err = float((conf - pconf).abs().max())
+        # conf is held relatively: at V = 18710 it is about 3e-3, where a
+        # lost vocabulary range's exp-sum would move it by far less than
+        # any absolute limit that also suits V = 96
+        over = int(((conf - pconf).abs() > CONF_RTOL * pconf + CONF_ATOL).sum())
         check(bool(((ids >= 0) & (ids < v)).all()), f"ctc_head V={v}: id out of range")
         check(id_mismatch == 0, f"ctc_head V={v}: {id_mismatch} ids differ from the plain version")
-        check(err <= 1e-3, f"ctc_head V={v}: conf differs by {err} > 1e-3")
+        check(over == 0, f"ctc_head V={v}: conf of {over} rows off by more than "
+                         f"{CONF_RTOL} x plain + {CONF_ATOL}")
         bound, by = ctc_bound_ms(N_FRAMES, C_FEAT, v)
         rec = {
             "n": N_FRAMES, "c": C_FEAT, "v": v,
             "ids_equal_where_margin_gt_1e-3": True,
             "ids_differing_near_ties": int((ids != pids).sum()),
             "max_abs_err": err,
+            "max_rel_err": float(((conf - pconf).abs() / pconf).max()),
+            "n_splits": _splits(N_FRAMES, v)[0],
             "kernel_ms": cuda_ms(lambda: fused_ctc_argmax(x, w, b)),
             "plain_ms": cuda_ms(lambda: ctc_argmax_plain(x, w, b)),
             "library_ms": cuda_ms(lambda: library(x, w, b)),
@@ -139,6 +168,61 @@ def phase_ctc_head() -> dict:
         emit({"phase": "ctc_head", **rec})
         results[v] = rec
     return results[VOCABS[0]]
+
+
+def witness_inputs(page):
+    """Model inputs of the bf16 witness, NHWC float32: two 256x512 det
+    crops of a fixture page, ImageNet-normalized, and two 48x320 rec
+    strips scaled to [-1, 1]."""
+    import numpy as np
+
+    det = np.stack([page[96:352, 32:544], page[400:656, 300:812]]).astype(np.float32)
+    det = (det / 255.0 - np.float32(DET_MEAN)) / np.float32(DET_STD)
+    rec = np.stack([page[100:148, 40:360], page[148:196, 40:360]]).astype(np.float32)
+    return det.astype(np.float32), rec / np.float32(127.5) - np.float32(1.0)
+
+
+def rel_err(a, b) -> float:
+    """||a - b|| / ||b|| in float64."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def bf16_gaps(bf16_system, fp32_system, page) -> dict:
+    """bf16-vs-fp32 relative error of the det model's prob map and the
+    rec model's features on witness_inputs(page), each system's models
+    run on its own device in its own dtype."""
+    import torch
+
+    det_x, rec_x = witness_inputs(page)
+    gaps = {}
+    for name, stage, x, kw in (("det", "detector", det_x, {}),
+                               ("rec", "recognizer", rec_x, {"features_only": True})):
+        ys = []
+        for system in (bf16_system, fp32_system):
+            sess = getattr(system, stage).session
+            with torch.no_grad():
+                y = sess.module(torch.from_numpy(x).to(sess.device, sess.compute_dtype), **kw)
+            ys.append(y.float().cpu().numpy())
+        gaps[name] = rel_err(*ys)
+    return gaps
+
+
+def check_bf16(vs_golden: dict, gaps: dict, jax_gaps: dict) -> None:
+    """The bf16 path's limits: text against the bf16 golden, and each
+    model's bf16-vs-fp32 error within BF16_GAP_BAND of the JAX package's."""
+    missed = vs_golden["lines"] - vs_golden["boxes_iou_ge_0.9"]
+    check(missed <= BF16_MAX_UNMATCHED, f"bf16: {missed} golden boxes unmatched > {BF16_MAX_UNMATCHED}")
+    check(vs_golden["exact_share"] >= BF16_MIN_EXACT,
+          f"bf16: only {vs_golden['exact_share']:.3f} of lines equal < {BF16_MIN_EXACT}")
+    check(vs_golden["cer"] <= BF16_MAX_CER, f"bf16: CER {vs_golden['cer']:.4f} > {BF16_MAX_CER}")
+    lo, hi = BF16_GAP_BAND
+    for name, gap in gaps.items():
+        ratio = gap / jax_gaps[name]
+        check(lo <= ratio <= hi, f"bf16 {name}: bf16-vs-fp32 error {gap:.3g} is {ratio:.3f} x "
+                                 f"the JAX package's, outside [{lo}, {hi}]")
 
 
 def _clip(poly, a, b):
@@ -232,12 +316,14 @@ def phase_ocr() -> int:
     out = system(pages)  # warm-up: cuDNN picks its algorithms
     torch.cuda.synchronize()
     fused_ctc_argmax.launches = 0
+    rec_calls = system.recognizer.session.stats.calls
     t0 = time.perf_counter()
     for _ in range(TIMED_RUNS):
         out = system(pages)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fused_ctc_argmax.launches
+    rec_calls = system.recognizer.session.stats.calls - rec_calls
     check(launches > 0, "the OCR main path launched the ctc_head kernel no time")
     for page in out:
         for it in page:
@@ -256,31 +342,27 @@ def phase_ocr() -> int:
     rec_s = time.perf_counter() - t0
 
     bf16 = compare_to_golden(out, golden["bf16"], "bf16")
-    fp32_out = build_ocr_system(dtype=torch.float32)(pages)
-    fp32 = compare_to_golden(fp32_out, golden["fp32"], "fp32")
-    own = compare_to_golden(golden["fp32"], golden["bf16"], None)
+    fp32_system = build_ocr_system(dtype=torch.float32)
+    fp32 = compare_to_golden(fp32_system(pages), golden["fp32"], "fp32")
+    gaps = bf16_gaps(system, fp32_system, pages[0])
     emit({
         "phase": "ocr", "pages": len(pages), "timed_runs": TIMED_RUNS,
         "pages_per_s": TIMED_RUNS * len(pages) / wall,
         "det_ms_per_page": det_s * 1e3 / len(pages),
         "rec_ms_per_page": rec_s * 1e3 / len(pages), "rec_crops": len(crops),
         "ctc_head_launches": launches,
-        "ctc_head_launches_per_page": launches / (TIMED_RUNS * len(pages)),
+        # one launch per rec batch dispatch (one per width bucket and
+        # bucket-sized chunk of the call's crops), not per page
+        "ctc_head_launches_per_call": launches / TIMED_RUNS,
+        "rec_dispatches_per_call": rec_calls / TIMED_RUNS,
         "bf16_vs_golden_bf16": bf16, "fp32_vs_golden_fp32": fp32,
-        "golden_fp32_vs_golden_bf16": own,
+        "bf16_rel_err": gaps, "jax_bf16_rel_err": golden["bf16_rel_err"],
     })
     # fp32 against the JAX package's fp32 output: the correctness gate
     check(fp32["boxes_iou_ge_0.9"] == fp32["lines"], "fp32: a golden box has no match with IoU >= 0.9")
     check(fp32["exact_share"] >= 0.95, f"fp32: only {fp32['exact_share']:.3f} of lines equal")
     check(fp32["cer"] <= 0.01, f"fp32: CER {fp32['cer']:.4f} > 0.01")
-    # bf16 rounds at other places than XLA's bf16 does, and the demo
-    # model's low-confidence lines flip under that: the JAX package's own
-    # fp32 and bf16 outputs differ on a quarter of these lines. So the
-    # bf16 run may differ from the bf16 golden at most twice as much as
-    # the JAX package's fp32 differs from its own bf16.
-    missed, own_missed = (r["lines"] - r["boxes_iou_ge_0.9"] for r in (bf16, own))
-    check(missed <= 2 * own_missed, f"bf16: {missed} golden boxes unmatched > 2 x {own_missed}")
-    check(bf16["cer"] <= 2 * own["cer"], f"bf16: CER {bf16['cer']:.4f} > 2 x {own['cer']:.4f}")
+    check_bf16(bf16, gaps, golden["bf16_rel_err"])
     return launches
 
 
@@ -311,6 +393,7 @@ def main() -> int:
         "source": "rapiddoc_tpu_torch/csrc/ctc_head.cu",
         "replaces": "rapiddoc_tpu/ops/ctc_head.py:30",
         "launches": launches, "max_abs_err": k1["max_abs_err"],
+        "max_rel_err": k1["max_rel_err"], "matches_plain": True,
         "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"], "shape": [k1["n"], k1["c"], k1["v"]],

@@ -7,7 +7,8 @@ Port of the demo branch of ``build_ocr_system``
 package's asset directory, as data files), the demo charset, and
 contrast stretch on. ``charset_path`` swaps in another dictionary, such
 as the published 18,710-entry ``ppocrv6_small_dict.txt``; the head is
-then random-init (seeded) at that width over the demo backbone and neck.
+then random-init (from ``HEAD_SEED``) at that width over the demo
+backbone and neck.
 """
 from __future__ import annotations
 
@@ -29,13 +30,14 @@ PUBLISHED_DICT = DEMO_ASSETS_DIR / "ppocrv6_small_dict.txt"
 # printable ASCII without space (space is the implicit final vocab entry
 # of CTCLabelDecoder), as rapiddoc_tpu/train/synth.py:55 defines it
 DEMO_CHARSET = [c for c in string.printable[:94] if c != " "]
+# seed of the random-init head that goes with a dictionary of charset_path
+HEAD_SEED = 0
 
 
 def build_ocr_system(
     device: str | torch.device | None = None,
     dtype: torch.dtype | None = None,
     charset_path: str | Path | None = None,
-    seed: int = 0,
 ) -> TextSystem:
     """The OCR system on ``device`` (the card by default) in ``dtype``
     (bf16 by default)."""
@@ -49,7 +51,7 @@ def build_ocr_system(
         rec = load_flax_into(
             SVTRRec(num_classes=len(decoder.chars)), rec_flat, skip=("head",)
         )
-        rng = np.random.default_rng(seed)
+        rng = np.random.default_rng(HEAD_SEED)
         c, v = rec.head.kernel.shape
         with torch.no_grad():
             rec.head.kernel.copy_(torch.from_numpy(

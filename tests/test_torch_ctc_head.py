@@ -114,4 +114,5 @@ def test_cuda_kernel_matches_plain():
     top2 = logits.topk(2, dim=-1).values
     decisive = (top2[:, 0] - top2[:, 1]) > 1e-3
     assert not ((ids != pids) & decisive).any()
-    assert (conf - pconf).abs().max() <= 1e-3
+    # relative: conf is about 3e-3 at this width, merged from 7 vocabulary ranges
+    assert ((conf - pconf).abs() <= 1e-5 * pconf + 1e-8).all()
