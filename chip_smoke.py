@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-Phases, one JSON line each:
+Phases, one JSON line each (quant_head and the formula phases one line
+per shape or run):
   card    the card's name and power limit (nvidia-smi)
-  build   nvcc build of every kernel of the path, timed
+  build   nvcc build of every kernel (K1 ctc_head, K2 quant_head), all
+          started together, each timed
   ctc_head  the fused CTC head kernel against its plain PyTorch version
           at the main path's widths (N = 10240 frames, C = 120) for the
           demo (V = 96) and published (V = 18710) vocabularies, timed
@@ -15,6 +17,22 @@ Phases, one JSON line each:
           held to the JAX package's golden output in its dtype, and the
           det and rec models' bf16-vs-fp32 error held to the JAX
           package's own
+  quant_head  the int8 fused head kernel against its plain version at
+          the formula decode's widths (N = 4 and 16 rows, K = 512) for
+          the demo (V = 57) and published (V = 50000) vocabularies, timed
+          with the L2 cache flushed before every launch, beside the plain
+          version and the bf16 head the JAX package runs by default
+  formula the demo formula recognizer on the committed fixture crops in
+          four runs (bf16 and fp32, each with the plain lm_head and with
+          the int8 head through K2), each held to the JAX package's
+          golden ids for its mode; K2's launches held to the decode
+          steps; the encoder memory's bf16-vs-fp32 error held to the
+          JAX package's own
+  formula_published  the published PP-FormulaNet_plus-M shape (B6
+          encoder, 6 decoder layers, V = 50000, random weights from a
+          seed), bf16, length bucket 256, with the int8 head through K2
+          and again through its plain version: the token streams must
+          be equal
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
 that last line. Needs the repository checkout around it and a card.
@@ -51,6 +69,27 @@ BF16_MAX_UNMATCHED, BF16_MIN_EXACT, BF16_MAX_CER = 4, 0.60, 0.05
 # that rounds only its weights to bf16 and computes in fp32 falls below
 # the band, and full fp32 far below it.
 BF16_GAP_BAND = (0.6, 1.5)
+KERNELS = ("ctc_head", "quant_head")
+QUANT_K = 512  # the formula decoder's d_model
+QUANT_ROWS = (4, 16)  # the decode's batch_chunks sizes
+QUANT_VOCABS = (57, 50000)  # demo vocabulary; published PP-FormulaNet_plus-M
+# written before each timed K2 launch: ten times the 50 MB L2, and about
+# 0.2 ms of device work, which covers the host's queueing of the timed
+# call, so that the timed span holds device work only
+L2_FLUSH_BYTES = 512 << 20
+FORMULA_MODES = ("bf16", "bf16_int8", "fp32", "fp32_int8")
+# The demo recognizer in bf16 against the JAX package's bf16 golden ids
+# (14 crops). The port's bf16 on the CPU reads 9/14 crops equal, token
+# error rate 0.084 with the plain head, and 8/14, 0.063 with the int8
+# head against its own golden (``python
+# tests/test_torch_formula_system.py --compare``); an AR decode turns
+# one flipped near-tie into a different tail, and the JAX package's own
+# bf16 and fp32 agree on 12/14 (0.033). The card's summation order is a
+# third rounding, so the margin is 3 crops and 0.066 of token error
+# rate. The encoder memory's bf16-vs-fp32 error is held to
+# BF16_GAP_BAND of the JAX package's own (the port's reading on the
+# CPU: 0.94 of it).
+FORMULA_BF16_MIN_EQUAL, FORMULA_BF16_MAX_TER = 5, 0.15
 DET_MEAN = (0.485, 0.456, 0.406)
 DET_STD = (0.229, 0.224, 0.225)
 
@@ -105,13 +144,25 @@ def phase_card() -> str:
 
 
 def phase_build() -> None:
+    """Every kernel's nvcc build, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from rapiddoc_tpu_torch.ops import build
 
+    def timed(name: str):
+        t0 = time.perf_counter()
+        path = build.build(name)
+        return name, path, time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    path = build.build("ctc_head")
-    build.load("ctc_head")
-    emit({"phase": "build", "kernel": "ctc_head", "seconds": time.perf_counter() - t0,
-          "library": str(path.relative_to(ROOT))})
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = list(pool.map(timed, KERNELS))
+    wall = time.perf_counter() - t0
+    for name, path, seconds in built:
+        build.load(name)
+        emit({"phase": "build", "kernel": name, "seconds": seconds,
+              "all_builds_wall_seconds": wall,
+              "library": str(path.relative_to(ROOT))})
 
 
 def phase_ctc_head() -> dict:
@@ -168,6 +219,299 @@ def phase_ctc_head() -> dict:
         emit({"phase": "ctc_head", **rec})
         results[v] = rec
     return results[VOCABS[0]]
+
+
+def flushed_ms(fn, flush, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` with ``flush`` (a buffer larger than the
+    L2 cache) overwritten before every call, so that each call reads its
+    inputs from device memory as a decode step, with the rest of the
+    decoder's weights streamed in between, would; CUDA events bracket
+    each call alone."""
+    import torch
+
+    for _ in range(warmup):
+        flush.zero_()
+        fn()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(iters)]
+    for start, end in pairs:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def quant_bound_ms(n: int, k: int, v: int) -> tuple[float, str]:
+    """Least time for the int8 head on an H100: 2*N*K*V operations at the
+    bf16 rate (989 TFLOP/s) against bytes read once (x bf16, wq int8,
+    scale and bias fp32) and written once (ids int32, conf fp32) at
+    3.35 TB/s."""
+    ops = 2.0 * n * k * v
+    nbytes = n * k * 2 + k * v + v * 8 + n * 8
+    t_ops, t_bytes = ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def phase_quant_head() -> dict:
+    """K2 against its plain version at the formula decode's widths;
+    returns the measurements by (N, V)."""
+    import numpy as np
+    import torch
+
+    from rapiddoc_tpu_torch.ops.quant_head import (
+        fused_argmax_int8,
+        quant_argmax_plain,
+        quantize_weight_int8,
+        ranges,
+    )
+
+    def library(xb, wb):
+        # the bf16 lm_head + argmax that the JAX package runs by default:
+        # one PyTorch matmul and the reduction, never called by the port
+        logits = torch.matmul(xb, wb).float()
+        top, ids = logits.max(dim=-1)
+        return ids, 1.0 / torch.exp(logits - top[:, None]).sum(-1)
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    results = {}
+    for v in QUANT_VOCABS:
+        rng = np.random.default_rng(v)
+        w = torch.from_numpy((rng.standard_normal((QUANT_K, v)) * 0.05).astype(np.float32)).cuda()
+        bias = torch.from_numpy((rng.standard_normal(v) * 0.1).astype(np.float32)).cuda()
+        wq, scale = quantize_weight_int8(w)
+        wb = w.to(torch.bfloat16)
+        for n in QUANT_ROWS:
+            x = torch.from_numpy(rng.standard_normal((n, QUANT_K)).astype(np.float32))
+            x = x.cuda().to(torch.bfloat16)
+            ids, conf = fused_argmax_int8(x, wq, scale, bias)
+            torch.cuda.synchronize()
+            pids, pconf = quant_argmax_plain(x, wq, scale, bias)
+            differ = int((ids != pids).sum())
+            over = int(((conf - pconf).abs() > CONF_RTOL * pconf + CONF_ATOL).sum())
+            check(differ == 0, f"quant_head N={n} V={v}: {differ} ids differ from the plain version")
+            check(over == 0, f"quant_head N={n} V={v}: conf of {over} rows off by more than "
+                             f"{CONF_RTOL} x plain + {CONF_ATOL}")
+            bound, by = quant_bound_ms(n, QUANT_K, v)
+            rec = {
+                "n": n, "k": QUANT_K, "v": v, "ids_equal": True,
+                "max_abs_err": float((conf - pconf).abs().max()),
+                "max_rel_err": float(((conf - pconf).abs() / pconf).max()),
+                "n_ranges": ranges(n, v)[0],
+                "kernel_ms": flushed_ms(lambda: fused_argmax_int8(x, wq, scale, bias), flush),
+                # launches queued back to back: the weight stays in L2,
+                # and the time is the host's cost of one wrapper call
+                # wherever that exceeds the kernel's device time
+                "back_to_back_ms": cuda_ms(lambda: fused_argmax_int8(x, wq, scale, bias)),
+                "plain_ms": flushed_ms(lambda: quant_argmax_plain(x, wq, scale, bias), flush),
+                "library_ms": flushed_ms(lambda: library(x, wb), flush),
+                "l2_flushed": True, "bound_ms": bound, "bound_by": by,
+            }
+            emit({"phase": "quant_head", **rec})
+            results[(n, v)] = rec
+    return results
+
+
+def first_difference(got: list, want: list) -> int:
+    """The first step at which two token streams differ."""
+    for step, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return step
+    return min(len(got), len(want))
+
+
+def compare_ids(got: list, want: list, label: str | None) -> dict:
+    """Crops with equal token ids, the token error rate (edit distance
+    over the golden's tokens) and each differing crop with its first
+    differing step. With a label, prints each differing crop to
+    stderr."""
+    differ = [[i, first_difference(g, w)] for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    if label:
+        for i, step in differ:
+            print(f"[{label}] crop {i} differs from step {step}", file=sys.stderr)
+    tokens = sum(len(w) for w in want)
+    return {"crops": len(want), "equal": len(want) - len(differ),
+            "ter": sum(_edits(g, w) for g, w in zip(got, want)) / max(tokens, 1),
+            "differ": differ}
+
+
+def check_formula_bf16(vs_golden: dict, gap: float, jax_gap: float) -> None:
+    """The bf16 formula limits: ids against the bf16 golden, and the
+    encoder memory's bf16-vs-fp32 error within BF16_GAP_BAND of the JAX
+    package's."""
+    check(vs_golden["equal"] >= FORMULA_BF16_MIN_EQUAL,
+          f"formula bf16: {vs_golden['equal']} crops equal < {FORMULA_BF16_MIN_EQUAL}")
+    check(vs_golden["ter"] <= FORMULA_BF16_MAX_TER,
+          f"formula bf16: token error rate {vs_golden['ter']:.4f} > {FORMULA_BF16_MAX_TER}")
+    lo, hi = BF16_GAP_BAND
+    ratio = gap / jax_gap
+    check(lo <= ratio <= hi, f"formula bf16: memory bf16-vs-fp32 error {gap:.3g} is "
+                             f"{ratio:.3f} x the JAX package's, outside [{lo}, {hi}]")
+
+
+def formula_crops() -> list:
+    import numpy as np
+
+    with np.load(ROOT / "rapiddoc_tpu_torch" / "assets" / "formula_smoke_crops.npz") as z:
+        return [z[f"crop{i:02d}"] for i in range(len(z.files))]
+
+
+def memory_gap(bf16_rec, fp32_rec, crops) -> float:
+    """bf16-vs-fp32 relative error of the encoder memory on the crops
+    that land in the first image bucket, each recognizer on its own
+    device in its own dtype."""
+    import numpy as np
+    import torch
+
+    from rapiddoc_tpu_torch.models.formula.engine import preprocess_formula
+
+    canvases = [preprocess_formula(c) for c in crops]
+    images = np.stack([x for x, b in canvases if b == canvases[0][1]])
+    with torch.no_grad():
+        mems = [r.encode(r.to_device(images)).float().cpu().numpy() for r in (bf16_rec, fp32_rec)]
+    return rel_err(*mems)
+
+
+def split_ms(rec, crops, max_len: int) -> tuple[float, float]:
+    """Encoder and decode milliseconds of one pass over the crops'
+    dispatch plan, each synchronized on its own."""
+    import torch
+
+    enc = dec = 0.0
+    for _, batch in rec.chunks(crops):
+        images = rec.to_device(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        memory = rec.encode(images)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rec.decode(memory, max_len)
+        torch.cuda.synchronize()
+        enc, dec = enc + t1 - t0, dec + time.perf_counter() - t1
+    return enc * 1e3, dec * 1e3
+
+
+def timed_predict(rec, crops) -> dict:
+    """One warm-up and one timed ``batch_predict(return_ids=True)``, with
+    the K2 launch count set to 0 just before the timed run and read just
+    after."""
+    import torch
+
+    from rapiddoc_tpu_torch.ops.quant_head import fused_argmax_int8
+
+    rec.batch_predict(crops, return_ids=True)  # warm-up: cuDNN picks its algorithms
+    torch.cuda.synchronize()
+    before = (rec.stats.dispatches, rec.stats.decode_steps, rec.stats.realized_steps)
+    fused_argmax_int8.launches = 0
+    t0 = time.perf_counter()
+    ids = rec.batch_predict(crops, return_ids=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_argmax_int8.launches
+    dispatches, steps, realized = (
+        a - b for a, b in zip((rec.stats.dispatches, rec.stats.decode_steps,
+                               rec.stats.realized_steps), before)
+    )
+    return {"ids": ids, "wall_s": wall, "crops_per_s": len(crops) / wall,
+            "dispatches": dispatches, "decode_steps": steps, "realized_steps": realized,
+            "ms_per_step": wall * 1e3 / max(steps, 1), "k2_launches": launches}
+
+
+def phase_formula() -> int:
+    """The demo recognizer in four runs; returns K2's launches in the
+    bf16 int8-head run."""
+    import torch
+
+    from rapiddoc_tpu_torch.models.registry import build_formula_recognizer
+
+    crops = formula_crops()
+    golden = json.loads((ROOT / "rapiddoc_tpu_torch" / "assets"
+                         / "formula_smoke_golden.json").read_text())
+    # the fp32 runs are full fp32: no TF32 in matmuls or convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    recs, runs = {}, {}
+    for mode in FORMULA_MODES:
+        int8 = mode.endswith("int8")
+        dtype = torch.float32 if mode.startswith("fp32") else torch.bfloat16
+        rec = build_formula_recognizer(dtype=dtype, int8_head=int8)
+        run = timed_predict(rec, crops)
+        run["encoder_ms"], run["decode_ms"] = split_ms(rec, crops, rec.config.default_length_bucket)
+        run["vs_golden"] = compare_ids(run.pop("ids"), golden[mode]["ids"], f"formula {mode}")
+        if int8:
+            check(run["k2_launches"] == run["decode_steps"] > 0,
+                  f"formula {mode}: {run['k2_launches']} K2 launches for "
+                  f"{run['decode_steps']} decode steps")
+        else:
+            check(run["k2_launches"] == 0, f"formula {mode}: K2 launched with the plain head")
+        check(run["decode_steps"] >= run["realized_steps"], f"formula {mode}: fewer steps than realized")
+        recs[mode], runs[mode] = rec, run
+        emit({"phase": "formula", "mode": mode, "crops": len(crops),
+              "length_bucket": rec.config.default_length_bucket, **run})
+    gap = memory_gap(recs["bf16"], recs["fp32"], crops)
+    emit({"phase": "formula", "memory_bf16_rel_err": gap,
+          "jax_memory_bf16_rel_err": golden["memory_bf16_rel_err"],
+          "share_of_jax": gap / golden["memory_bf16_rel_err"]})
+    # fp32 against the JAX package's fp32 ids: the correctness gate
+    for mode in ("fp32", "fp32_int8"):
+        vs = runs[mode]["vs_golden"]
+        check(vs["equal"] == vs["crops"], f"formula {mode}: ids differ on crops {vs['differ']}")
+    for mode in ("bf16", "bf16_int8"):
+        check_formula_bf16(runs[mode]["vs_golden"], gap, golden["memory_bf16_rel_err"])
+    return runs["bf16_int8"]["k2_launches"]
+
+
+def phase_formula_published() -> int:
+    """The published shape, random weights, through K2 and through its
+    plain version; returns K2's launches in the timed run."""
+    import torch
+
+    from rapiddoc_tpu_torch.models.formula.engine import FormulaConfig, FormulaRecognizer
+    from rapiddoc_tpu_torch.ops.quant_head import fused_argmax_int8, quant_argmax_plain
+
+    crops = formula_crops()
+    cfg = FormulaConfig()
+    t0 = time.perf_counter()
+    rec = FormulaRecognizer(None, config=cfg, seed=0, int8_head=True)
+    build_s = time.perf_counter() - t0
+    run = timed_predict(rec, crops)
+    check(run["k2_launches"] == run["decode_steps"] > 0,
+          f"formula_published: {run['k2_launches']} K2 launches for {run['decode_steps']} steps")
+    # the same decode with the plain version as the head, its inputs kept
+    # so that a difference can be shown with the plain top-two margin
+    calls = []
+    first_dispatch = rec.stats.dispatches
+
+    def plain_head(x, wq, scale, bias):
+        calls.append((rec.stats.dispatches - first_dispatch, x.detach().clone()))
+        return quant_argmax_plain(x, wq, scale, bias)
+
+    rec.argmax_int8 = plain_head
+    plain_ids = rec.batch_predict(crops, return_ids=True)
+    rec.argmax_int8 = fused_argmax_int8
+    differ = []
+    wq, scale = rec._int8_head()
+    for d, (idxs, _) in enumerate(rec.chunks(crops)):
+        steps = [x for dd, x in calls if dd == d]
+        for row, i in enumerate(idxs):
+            if run["ids"][i] != plain_ids[i]:
+                step = first_difference(run["ids"][i], plain_ids[i])
+                # the plain version's logits (the decode's bias is zero)
+                x = steps[step][row].to(torch.bfloat16).float()
+                top2 = ((x @ wq.to(torch.bfloat16).float()) * scale).topk(2).values
+                differ.append({"crop": i, "step": step,
+                               "plain_top2_margin": float(top2[0] - top2[1])})
+    emit({"phase": "formula_published", "config": {
+              "backbone": cfg.backbone_size, "out_index": cfg.out_index,
+              "layers": cfg.layers, "d_model": cfg.d_model, "heads": cfg.heads,
+              "ffn": cfg.ffn, "vocab": cfg.vocab_size,
+              "length_bucket": cfg.default_length_bucket, "weights": "random, seed 0"},
+          "build_s": build_s, "crops": len(crops),
+          **{k: v for k, v in run.items() if k != "ids"},
+          "streams_equal_to_plain_head": not differ, "differ": differ})
+    check(not differ, f"formula_published: K2 and its plain version differ: {differ}")
+    return run["k2_launches"]
 
 
 def witness_inputs(page):
@@ -385,9 +729,13 @@ def main() -> int:
         phase_build()
         k1 = phase_ctc_head()
         launches = phase_ocr()
+        k2_all = phase_quant_head()
+        k2_launches = phase_formula()
+        phase_formula_published()
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    k2 = k2_all[(QUANT_ROWS[-1], QUANT_VOCABS[-1])]
     emit({"kernels": [{
         "name": "ctc_head", "route": "cuda",
         "source": "rapiddoc_tpu_torch/csrc/ctc_head.cu",
@@ -397,6 +745,17 @@ def main() -> int:
         "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"], "shape": [k1["n"], k1["c"], k1["v"]],
+    }, {
+        # launches: the demo recognizer's bf16 int8-head run; times at the
+        # published width, L2 flushed before each launch
+        "name": "quant_head", "route": "cuda",
+        "source": "rapiddoc_tpu_torch/csrc/quant_head.cu",
+        "replaces": "rapiddoc_tpu/ops/quant_head.py:50",
+        "launches": k2_launches, "max_abs_err": k2["max_abs_err"],
+        "max_rel_err": k2["max_rel_err"], "matches_plain": True,
+        "ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+        "library_ms": k2["library_ms"], "shape": [k2["n"], k2["k"], k2["v"]],
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {

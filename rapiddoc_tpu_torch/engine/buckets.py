@@ -1,7 +1,8 @@
 """Shape buckets: every model runs on a small closed set of padded shapes.
 
 Port of ``rapiddoc_tpu/engine/buckets.py`` (``BucketSpec``,
-``DET_BUCKETS``, ``REC_BUCKETS``, ``group_by_bucket``) and of
+``DET_BUCKETS``, ``REC_BUCKETS``, ``pad_rows``, ``batch_chunks``,
+``group_by_bucket``) and of
 ``pad_image_to`` from ``rapiddoc_tpu/engine/session.py:556``. The port
 keeps its own copy so that it imports nothing of the JAX package. A
 closed shape set keeps the door open for one CUDA graph per bucket.
@@ -59,6 +60,34 @@ REC_BUCKETS = BucketSpec(
     widths=(160, 320, 640),
     batch_sizes=(32, 128),
 )
+
+
+def pad_rows(batch: np.ndarray, target: int) -> np.ndarray:
+    """Pad axis 0 to ``target`` rows by repeating the last row (real
+    pixels keep the padded rows on the ordinary numeric path; their
+    results are sliced off)."""
+    n = batch.shape[0]
+    if n == target:
+        return batch
+    return np.concatenate(
+        [batch, np.repeat(batch[-1:], target - n, axis=0)], axis=0
+    )
+
+
+def batch_chunks(
+    n: int, sizes: tuple[int, ...] = (1, 2, 4, 8, 16)
+) -> list[tuple[int, int, int]]:
+    """Split n rows into (start, stop, padded_size) chunks whose padded
+    sizes all come from the closed ``sizes`` set."""
+    out: list[tuple[int, int, int]] = []
+    start = 0
+    mx = sizes[-1]
+    while start < n:
+        take = min(mx, n - start)
+        padded = next(b for b in sizes if take <= b)
+        out.append((start, start + take, padded))
+        start += take
+    return out
 
 
 def group_by_bucket(

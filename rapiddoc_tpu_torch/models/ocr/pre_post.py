@@ -78,7 +78,7 @@ def resize_linear(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
     return out.astype(np.uint8)
 
 
-def _rgb_to_gray(img: np.ndarray) -> np.ndarray:
+def rgb_to_gray(img: np.ndarray) -> np.ndarray:
     """``cvtColor(RGB2GRAY)`` for uint8: BT.601 weights in 15-bit fixed
     point, as OpenCV computes them."""
     s = img.astype(np.int32)
@@ -502,7 +502,7 @@ def to_luma(img: np.ndarray) -> np.ndarray:
         return img[..., None]
     if img.shape[-1] == 1:
         return img
-    return _rgb_to_gray(img)[..., None]
+    return rgb_to_gray(img)[..., None]
 
 
 # ----------------------------------------------------------------- det post

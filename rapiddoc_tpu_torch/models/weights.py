@@ -11,10 +11,17 @@ its type decides the layout change:
 - ``nn.Linear``: (in, out) kernel -> (out, in) weight;
 - ``BatchNorm``: ``scale``/``bias`` params and ``mean``/``var`` stats;
 - ``nn.LayerNorm``: ``scale``/``bias``;
+- ``nn.Embedding``: the ``embedding`` table;
 - any other parameter (the (Cin, Cout, 2, 2) deconv kernels, the DB
-  head's ``final_kernel``, the CTC head's (C, V) kernel) as stored.
+  head's ``final_kernel``, the CTC head's (C, V) kernel, the MBart
+  decoder's bare ``embed_positions``, the scalar ``scale``/``bias`` of
+  HGNet's ``LearnableAffine``) as stored, the root module's own
+  included.
 
-Files are read in place and nothing is written.
+A checkpoint of several models in one file (the formula recognizer's
+``encoder/…``, ``decoder/…`` and ``mem_proj/…``) is cut into one flat
+dict per model with :func:`subtree`. Files are read in place and
+nothing is written.
 """
 from __future__ import annotations
 
@@ -36,6 +43,12 @@ def load_npz(path: str | Path) -> dict[str, np.ndarray]:
         }
 
 
+def subtree(flat: dict[str, np.ndarray], name: str) -> dict[str, np.ndarray]:
+    """The ``name/…`` leaves of ``flat``, with the prefix taken off."""
+    cut = len(name) + 1
+    return {k[cut:]: v for k, v in flat.items() if k.startswith(name + "/")}
+
+
 def load_flax_into(
     model: nn.Module, flat: dict[str, np.ndarray], skip: tuple[str, ...] = ()
 ) -> nn.Module:
@@ -55,29 +68,32 @@ def load_flax_into(
         out[name] = torch.from_numpy(np.array(arr, np.float32, order="C"))
 
     for path, mod in model.named_modules():
-        if not path or path.startswith(skip):
+        if path and path.startswith(skip):
             continue
-        fp = "params/" + path.replace(".", "/")
-        sp = "batch_stats/" + path.replace(".", "/")
+        fp = "/".join(["params", *path.split(".")]) if path else "params"
+        sp = "/".join(["batch_stats", *path.split(".")]) if path else "batch_stats"
+        prefix = f"{path}." if path else ""
         if isinstance(mod, nn.Conv2d):
-            put(f"{path}.weight", take(f"{fp}/kernel").transpose(3, 2, 0, 1))
+            put(f"{prefix}weight", take(f"{fp}/kernel").transpose(3, 2, 0, 1))
             if mod.bias is not None:
-                put(f"{path}.bias", take(f"{fp}/bias"))
+                put(f"{prefix}bias", take(f"{fp}/bias"))
         elif isinstance(mod, nn.Linear):
-            put(f"{path}.weight", take(f"{fp}/kernel").T)
+            put(f"{prefix}weight", take(f"{fp}/kernel").T)
             if mod.bias is not None:
-                put(f"{path}.bias", take(f"{fp}/bias"))
+                put(f"{prefix}bias", take(f"{fp}/bias"))
         elif isinstance(mod, BatchNorm):
-            put(f"{path}.weight", take(f"{fp}/scale"))
-            put(f"{path}.bias", take(f"{fp}/bias"))
-            put(f"{path}.running_mean", take(f"{sp}/mean"))
-            put(f"{path}.running_var", take(f"{sp}/var"))
+            put(f"{prefix}weight", take(f"{fp}/scale"))
+            put(f"{prefix}bias", take(f"{fp}/bias"))
+            put(f"{prefix}running_mean", take(f"{sp}/mean"))
+            put(f"{prefix}running_var", take(f"{sp}/var"))
         elif isinstance(mod, nn.LayerNorm):
-            put(f"{path}.weight", take(f"{fp}/scale"))
-            put(f"{path}.bias", take(f"{fp}/bias"))
+            put(f"{prefix}weight", take(f"{fp}/scale"))
+            put(f"{prefix}bias", take(f"{fp}/bias"))
+        elif isinstance(mod, nn.Embedding):
+            put(f"{prefix}weight", take(f"{fp}/embedding"))
         else:
             for name, _ in mod.named_parameters(recurse=False):
-                put(f"{path}.{name}", take(f"{fp}/{name}"))
+                put(f"{prefix}{name}", take(f"{fp}/{name}"))
     prefixes = tuple(
         f"{c}/{s.replace('.', '/')}" for s in skip
         for c in ("params", "batch_stats")
