@@ -22,6 +22,7 @@ from torch import nn
 
 from ...engine.buckets import batch_chunks, pad_rows
 from ...engine.session import resolve_device
+from ...ops.layout import aligned_rows
 from ...ops.quant_head import fused_argmax_int8, quantize_weight_int8
 from ..common.layers import BatchNorm
 from ..ocr.pre_post import resize_linear, rgb_to_gray
@@ -211,7 +212,8 @@ class FormulaRecognizer:
 
     def _int8_head(self) -> tuple[torch.Tensor, torch.Tensor] | None:
         """The committed lm_head (rounded to the compute dtype), quantized
-        to int8 once; None while the int8 head is off."""
+        to int8 once, its rows 16-byte aligned for the kernel's copies;
+        None while the int8 head is off."""
         on = self.int8_head
         if on is None:
             on = bool(os.environ.get("RAPIDDOC_INT8_HEAD"))
@@ -219,7 +221,8 @@ class FormulaRecognizer:
             return None
         if self._int8_head_cache is None:
             w = self.decoder.lm_head.weight.detach().float().t().contiguous()
-            self._int8_head_cache = quantize_weight_int8(w)
+            wq, scale = quantize_weight_int8(w)
+            self._int8_head_cache = (aligned_rows(wq), scale)
         return self._int8_head_cache
 
     @torch.no_grad()

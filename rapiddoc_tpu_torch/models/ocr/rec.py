@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ...ops.ctc_head import ctc_head_decode
+from ...ops.ctc_head import ctc_head_decode, pad_ctc_kernel
 from ..common.layers import ConvBNAct, TransformerBlock
 from .backbone import PPLCNetV4
 
@@ -49,15 +49,27 @@ class LightSVTRNeck(nn.Module):
 
 class CTCHead(nn.Module):
     """Vocabulary projection with a (C, V) kernel, run through the fused
-    head kernel."""
+    head kernel. On the card the kernel reads a bf16 copy of the weight
+    with 16-byte aligned rows, made once per weight (again only if the
+    weight is replaced or changed in place)."""
 
     def __init__(self, dims: int, num_classes: int):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(dims, num_classes))
         self.bias = nn.Parameter(torch.zeros(num_classes))
+        self._aligned: tuple[tuple, torch.Tensor] | None = None
+
+    def head_kernel(self) -> torch.Tensor:
+        w = self.kernel
+        if w.device.type != "cuda":
+            return w
+        key = (w.data_ptr(), w._version, w.dtype)
+        if self._aligned is None or self._aligned[0] != key:
+            self._aligned = (key, pad_ctc_kernel(w))
+        return self._aligned[1]
 
     def forward(self, seq: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        return ctc_head_decode(seq, self.kernel, self.bias)
+        return ctc_head_decode(seq, self.head_kernel(), self.bias)
 
 
 class SVTRRec(nn.Module):

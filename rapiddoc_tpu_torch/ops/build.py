@@ -1,9 +1,10 @@
 """Build a CUDA source of this package with nvcc and load it with ctypes.
 
 Each source under ``csrc/`` exposes a plain ``extern "C"`` launcher and
-includes no PyTorch header, so one nvcc call takes seconds. The shared
-library goes to ``_build/<name>-<source hash>/`` beside the package and
-is reused while the source is unchanged. Nothing here runs at import
+includes no PyTorch header (only the shared ``csrc/*.cuh``), so one nvcc
+call takes seconds. The shared library goes to
+``_build/<name>-<hash>/`` beside the package and is reused while the
+source, the headers it includes and the flags are unchanged. Nothing here runs at import
 time: the first launch of a kernel builds it.
 """
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,6 +25,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -41,9 +45,35 @@ def find_nvcc() -> str:
     )
 
 
+def local_headers(name: str) -> list[Path]:
+    """The headers under ``csrc/`` that ``csrc/<name>.cu`` includes with
+    quotes, directly or through one another. Raises FileNotFoundError
+    naming a header that is missing (a copy of the package that left out
+    ``csrc/*.cuh``) before nvcc would stop on it."""
+    found: list[Path] = []
+    todo = [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        src = todo.pop()
+        for inc in _INCLUDE.findall(src.read_text()):
+            path = CSRC_DIR / inc
+            if not path.is_file():
+                raise FileNotFoundError(
+                    f"{src.name} includes {inc}, which is missing from {CSRC_DIR}"
+                )
+            if path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
+
+
 def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` at its current content goes."""
+    """Where the build of ``csrc/<name>.cu`` at its current content goes:
+    the hash covers the source, the headers it includes and the flags, so
+    a changed header rebuilds too."""
     digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(local_headers(name)):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}" / f"lib{name}.so"
 

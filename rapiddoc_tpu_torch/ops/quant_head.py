@@ -15,16 +15,17 @@ version below for CPU tensors; it does no other fallback.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from .build import load
+from .layout import with_aligned_rows
 
 TILE_V = 128  # vocabulary columns per tile, as in csrc/quant_head.cu
-THREADS = 256  # threads per block, as in csrc/quant_head.cu
-ROW_TILES = (4, 16)  # rows per block: the formula decode's batch sizes
-TARGET_BLOCKS = 2 * 132  # about two blocks for each of the H100's SMs
-SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use
+ROWS = 16  # rows per block: the mma's M, as in csrc/quant_head.cu
+SMS = 132  # the H100's SMs: at most one block on each
+MAX_K = 512  # the deepest x the kernel takes (the decoders' d_model), as in csrc/quant_head.cu
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,28 +57,59 @@ def quant_argmax_plain(
     return ids.to(torch.int32), 1.0 / torch.clamp(denom, min=1e-30)
 
 
-def row_tile(n: int) -> int:
-    """Rows per block: 4 for a decode batch of up to 4, else 16."""
-    return ROW_TILES[0] if n <= ROW_TILES[0] else ROW_TILES[1]
+class Schedule(NamedTuple):
+    """How the kernel splits the TILE_V-column vocabulary tiles of each
+    16-row block between ``n_blocks`` blocks, in one launch: block b takes
+    tiles b, b + n_blocks, b + 2 n_blocks, ..., at most
+    ``tiles_per_block``. With several blocks each writes its triples to
+    scratch and the last one to finish merges them; one block needs
+    neither: it writes ids and conf itself."""
+
+    n_blocks: int
+    tiles_per_block: int
+
+    @property
+    def merge(self) -> bool:
+        return self.n_blocks > 1
 
 
-def ranges(n: int, v: int) -> tuple[int, int]:
-    """(n_ranges, tiles_per_range): cut the vocabulary tiles into enough
-    contiguous ranges to give the card about TARGET_BLOCKS blocks, with
-    no empty range."""
+def schedule(n: int, v: int) -> Schedule:
+    """At most one block per SM: the vocabulary tiles split between as
+    many blocks as there are SMs for each 16-row block, with no empty
+    block."""
     n_tiles = -(-v // TILE_V)
-    row_blocks = -(-n // row_tile(n))
-    n_ranges = max(1, min(n_tiles, -(-TARGET_BLOCKS // row_blocks)))
-    per = -(-n_tiles // n_ranges)
-    return -(-n_tiles // per), per
+    row_blocks = -(-n // ROWS)
+    n_blocks = max(1, min(n_tiles, SMS // row_blocks))
+    return Schedule(n_blocks, -(-n_tiles // n_blocks))
 
 
 def _launcher():
-    fn = load("quant_head").quant_head_launch
+    lib = load("quant_head")
+    fn = lib.quant_head_launch
     if fn.argtypes is None:
-        fn.argtypes = [_VP] * 9 + [_I] * 6 + [_VP]
+        if lib.quant_head_max_k() != MAX_K:
+            raise RuntimeError(
+                f"csrc/quant_head.cu takes K <= {lib.quant_head_max_k()}, not MAX_K = {MAX_K}"
+            )
+        fn.argtypes = [_VP] * 10 + [_I] * 7 + [_VP]
         fn.restype = _I
     return fn
+
+
+_tickets: dict[tuple, torch.Tensor] = {}
+
+
+def tickets(device: torch.device, stream: int, count: int) -> torch.Tensor:
+    """Zeroed uint32 counters, one per 16-row block, kept per device and
+    stream: the kernel's last block of each row block merges the blocks'
+    triples and sets its counter back to zero, so launches on one stream
+    reuse them in order."""
+    key = (device, stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < count:
+        buf = torch.zeros(max(count, 64), dtype=torch.int32, device=device)
+        _tickets[key] = buf
+    return buf
 
 
 def fused_argmax_int8(
@@ -85,6 +117,9 @@ def fused_argmax_int8(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """x (N, K) features; wq (K, V) int8; scale (V,); bias (V,).
     Returns (argmax ids (N,) int32, softmax prob of the argmax (N,) fp32).
+    The kernel reads x and wq in place where their rows start on 16 bytes
+    (wq from ``layout.aligned_rows``, x of depth K = 512); other layouts
+    are copied so per call.
 
     CPU tensors take :func:`quant_argmax_plain`; CUDA tensors launch the
     kernel (x cast to bf16, scale and bias to fp32) and raise if the
@@ -110,29 +145,27 @@ def fused_argmax_int8(
         raise ValueError(f"unsupported device {x.device}")
     if any(t.device != x.device for t in (wq, scale, bias)):
         raise ValueError("x, wq, scale and bias must be on one device")
-    rows = row_tile(n)
-    # dynamic shared memory: x as fp32 (K x rows) and the cross-warp sums
-    # (8 warps x 2 rows x TILE_V)
-    smem = 4 * (k * rows + (THREADS // 32) * 2 * TILE_V)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"K = {k} needs {smem} bytes of shared memory > {SMEM_LIMIT}")
-    xb = x.to(torch.bfloat16).contiguous()
-    wqc = wq.contiguous()
+    if k > MAX_K:
+        raise ValueError(f"K = {k} exceeds the kernel's largest depth {MAX_K}")
+    xb = with_aligned_rows(x, torch.bfloat16)
+    wq = with_aligned_rows(wq, torch.int8)
     sf = scale.to(torch.float32).contiguous()
     bf = bias.to(torch.float32).contiguous()
-    n_ranges, per = ranges(n, v)
-    part_m = torch.empty((n_ranges, n), dtype=torch.float32, device=x.device)
-    part_a = torch.empty((n_ranges, n), dtype=torch.int32, device=x.device)
-    part_s = torch.empty((n_ranges, n), dtype=torch.float32, device=x.device)
+    plan = schedule(n, v)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    parts = [None] * 4
+    if plan.merge:
+        parts = [torch.empty((plan.n_blocks, n), dtype=dt, device=x.device)
+                 for dt in (torch.float32, torch.int32, torch.float32)]
+        parts.append(tickets(x.device, stream, -(-n // ROWS)))
     ids = torch.empty((n,), dtype=torch.int32, device=x.device)
     conf = torch.empty((n,), dtype=torch.float32, device=x.device)
-    fn = _launcher()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(
-        xb.data_ptr(), wqc.data_ptr(), sf.data_ptr(), bf.data_ptr(),
-        part_m.data_ptr(), part_a.data_ptr(), part_s.data_ptr(),
+    rc = _launcher()(
+        xb.data_ptr(), wq.data_ptr(), sf.data_ptr(), bf.data_ptr(),
+        *(p.data_ptr() if p is not None else None for p in parts[:3]),
         ids.data_ptr(), conf.data_ptr(),
-        n, k, v, rows, n_ranges, per, stream,
+        parts[3].data_ptr() if parts[3] is not None else None,
+        n, k, v, xb.stride(0), wq.stride(0), plan.n_blocks, plan.tiles_per_block, stream,
     )
     if rc != 0:
         raise RuntimeError(f"quant_head kernel launch failed: CUDA error {rc}")

@@ -10,14 +10,19 @@ head, length bucket 256; one traced run by default, since its 512
 decode steps make a large trace). For each it prints the wall time per crop,
 the device's kernel time per crop, the device's busy share (kernel time
 over wall), the decode steps and the kernels that take the most device
-time. One JSON object per line; the card's name and power limit come
-first.
+time. With the int8 head it also prints what the head costs a decode
+step: its kernel's device time (traced), and, from as many untraced
+runs, the wall time per step and the host time spent inside the head's
+wrapper per call (checks, scratch, launch), read by timing
+``FormulaRecognizer.argmax_int8``. One JSON object per line; the card's
+name and power limit come first.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import subprocess
+import time
 from pathlib import Path
 
 import numpy as np
@@ -37,13 +42,51 @@ def report(name: str, rec: FormulaRecognizer, crops: list, runs: int) -> dict:
     wall, kernels = traced(lambda: rec.batch_predict(crops), runs)
     n = runs * len(crops)
     device_ms = sum(k[1] for k in kernels)
+    steps = rec.stats.decode_steps - steps
+    cost = head_cost(rec, crops, runs, kernels, steps) if rec.int8_head else {}
     return {
         "part": name,
         "wall_ms_per_crop": wall * 1e3 / n,
         "device_kernel_ms_per_crop": device_ms / n,
         "device_busy_share": device_ms / (wall * 1e3),
-        "decode_steps_per_run": (rec.stats.decode_steps - steps) / runs,
+        "decode_steps_per_run": steps / runs,
         "top_kernels_ms_per_crop": [[k[0][:80], k[1] / n, k[2]] for k in kernels[:10]],
+        **cost,
+    }
+
+
+def head_cost(rec: FormulaRecognizer, crops: list, runs: int, kernels: list,
+              traced_steps: int) -> dict:
+    """The int8 head's cost a decode step: ``kernels`` (traced over
+    ``traced_steps`` steps) give its kernels' device time; ``runs``
+    untraced runs give the wall time per step and the host time inside
+    ``rec.argmax_int8`` per call."""
+    inner = rec.argmax_int8
+    spent = [0.0, 0]
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = inner(*args)
+        spent[0] += time.perf_counter() - t0
+        spent[1] += 1
+        return out
+
+    rec.argmax_int8 = timed
+    steps = rec.stats.decode_steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        rec.batch_predict(crops)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec.argmax_int8 = inner
+    steps = rec.stats.decode_steps - steps
+    head = [k for k in kernels if "quant_head" in k[0]]
+    return {
+        "untraced_wall_ms_per_step": wall * 1e3 / steps,
+        "head_host_ms_per_call": spent[0] * 1e3 / spent[1],
+        "head_calls_per_step": spent[1] / steps,
+        "head_device_ms_per_step": sum(k[1] for k in head) / traced_steps,
     }
 
 

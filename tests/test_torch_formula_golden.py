@@ -142,6 +142,56 @@ def jax_memory_gap(crops: list[np.ndarray]) -> float:
     return _chip_smoke().rel_err(np.asarray(m16.astype(jnp.float32)), np.asarray(m32))
 
 
+def jax_first_step_gap(crops: list[np.ndarray]) -> float:
+    """The JAX package's own bf16-vs-fp32 relative error of the first
+    decode step's logits (BOS at position 0, plain lm_head, caches of the
+    default length bucket) on the crops of the first image bucket: the
+    demo modules with their stored weights cast as commit_params casts
+    them, each dtype run from its own encoder memory."""
+    import jax
+    import jax.numpy as jnp
+
+    from rapiddoc_tpu.engine.session import commit_params
+    from rapiddoc_tpu.models.formula.engine import (
+        UNIMER_MEAN,
+        UNIMER_STD,
+        FormulaConfig,
+        preprocess_formula,
+    )
+    from rapiddoc_tpu.models.formula.model import build_formula_modules
+    from rapiddoc_tpu.models.registry import DEMO_ASSETS_DIR, _load_variables
+
+    meta = json.loads((DEMO_ASSETS_DIR / "formula_demo.json").read_text())
+    arch = meta["arch"]
+    encoder, decoder, mem_proj, cfg = build_formula_modules(
+        max_len=arch["max_len"], vocab_size=len(meta["vocab"]), layers=arch["layers"],
+        backbone_size=arch["backbone_size"], out_index=arch["out_index"],
+    )
+    length = min(arch["max_len"], FormulaConfig.default_length_bucket)
+    variables = _load_variables(DEMO_ASSETS_DIR / "formula_demo.npz")
+    images = memory_batch(crops, preprocess_formula)
+    x = (images.astype(np.float32) / 255.0 - UNIMER_MEAN) / UNIMER_STD
+    x = np.broadcast_to(x, (*x.shape[:-1], 3))
+
+    def first_step(enc, dec, mem, x):
+        memory = encoder.apply(enc, x)
+        b, s = memory.shape[:2]
+        mem_k, mem_v = mem_proj.apply(mem, memory)
+        hd = cfg.d_model // cfg.heads
+        caches = jnp.zeros((cfg.layers, b, length, cfg.heads, hd), x.dtype)
+        cur = jnp.full((b, 1), cfg.bos_token_id, jnp.int32)
+        logits, _, _ = decoder.apply(dec, cur, caches, caches, 0, mem_k, mem_v,
+                                     jnp.ones((b, s), bool))
+        return logits[:, -1].astype(jnp.float32)
+
+    fn = jax.jit(first_step)
+    out = {}
+    for dtype in (jnp.float32, jnp.bfloat16):
+        params = [commit_params(variables[k], dtype=dtype) for k in ("encoder", "decoder", "mem_proj")]
+        out[dtype] = np.asarray(fn(*params, jnp.asarray(x, dtype)))
+    return _chip_smoke().rel_err(out[jnp.bfloat16], out[jnp.float32])
+
+
 def memory_batch(crops, preprocess) -> np.ndarray:
     """The uint8 canvases of the crops that land in the first bucket."""
     canvases = [preprocess(c) for c in crops]
@@ -170,6 +220,7 @@ def make_golden(crops: list[np.ndarray], truths: list[str]) -> dict:
         ids = jax_ids(crops, mode)
         golden[mode] = {"ids": ids, "latex": [vocab.decode(i) for i in ids]}
     golden["memory_bf16_rel_err"] = round(jax_memory_gap(crops), 6)
+    golden["first_step_logits_bf16_rel_err"] = round(jax_first_step_gap(crops), 6)
     return golden
 
 
@@ -199,6 +250,12 @@ def test_fixture_crops_match_committed(fresh, crops):
 @pytest.mark.parametrize("mode", MODES)
 def test_golden_matches_jax_package(crops, golden, mode):
     assert jax_ids(crops, mode) == golden[mode]["ids"]
+
+
+def test_golden_first_step_gap_matches_jax_package(crops, golden):
+    gap = jax_first_step_gap(crops)
+    assert 1e-3 < gap < 0.1  # bf16 rounding, neither fp32 nor broken
+    assert golden["first_step_logits_bf16_rel_err"] == pytest.approx(gap, rel=1e-3)
 
 
 def test_golden_memory_gap_matches_jax_package(crops, golden):

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_formula_golden import GOLDEN_JSON, MODES, _chip_smoke, load_crops, memory_batch
+from test_torch_formula_golden import GOLDEN_JSON, MODES, _chip_smoke, load_crops
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -36,11 +36,6 @@ def build(dtype):
     return build_formula_recognizer(device="cpu", dtype=dtype)
 
 
-def port_memory_gap(bf16_rec, fp32_rec, crops) -> float:
-    from rapiddoc_tpu_torch.models.formula.engine import preprocess_formula
-
-    images = torch.from_numpy(memory_batch(crops, preprocess_formula))
-    return _chip_smoke().rel_err(*(r.encode(images).float().numpy() for r in (bf16_rec, fp32_rec)))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -115,15 +110,14 @@ def test_port_bf16_meets_the_card_limits(recs, crops, golden):
     smoke = _chip_smoke()
     got = port_ids(recs["bf16"], crops, int8_head=False)
     smoke.check_formula_bf16(smoke.compare_ids(got, golden["bf16"]["ids"], None),
-                             port_memory_gap(recs["bf16"], recs["fp32"], crops),
-                             golden["memory_bf16_rel_err"])
+                             smoke.formula_gaps(recs["bf16"], recs["fp32"], crops), golden)
 
 
 def compare_bf16() -> dict:
     """How far bf16 ids lie from the committed bf16 golden: the JAX
     package's fp32 and the port's bf16 on the CPU with both heads, and
-    the port's encoder-memory bf16-vs-fp32 error as a share of the JAX
-    package's."""
+    the port's bf16-vs-fp32 errors (encoder memory, first decode step's
+    logits) as shares of the JAX package's."""
     smoke = _chip_smoke()
     committed = json.loads(GOLDEN_JSON.read_text())
     bf16, fp32 = build(torch.bfloat16), build(torch.float32)
@@ -135,8 +129,8 @@ def compare_bf16() -> dict:
         "port_bf16_cpu": smoke.compare_ids(port_ids(bf16, crops, False), committed["bf16"]["ids"], None),
         "port_bf16_int8_cpu": smoke.compare_ids(port_ids(bf16, crops, True),
                                                 committed["bf16_int8"]["ids"], None),
-        "port_memory_gap_share": port_memory_gap(bf16, fp32, crops)
-        / committed["memory_bf16_rel_err"],
+        "port_gap_share": {name: gap / committed[smoke.FORMULA_GAPS[name]]
+                           for name, gap in smoke.formula_gaps(bf16, fp32, crops).items()},
     }
 
 

@@ -2,16 +2,15 @@
 package's pre_post, on random inputs from numpy seeds.
 
 Bit-equal: INTER_LINEAR resize, RGB->grey, 2x2 dilation, boxPoints,
-getPerspectiveTransform, fillPoly of polygons inside the image, the
-number and order of findContours(RETR_LIST) contours, det/rec resize.
+getPerspectiveTransform, warpPerspective, fillPoly of polygons inside
+the image, the number and order of findContours(RETR_LIST) contours,
+det/rec resize.
 Within a stated tolerance, each with its reason:
 - minAreaRect: within 1e-5 relative (OpenCV's float32 calipers
   replayed in numpy float32 scalars; a few last-bit differences);
 - fillPoly of a box crossing the image border: OpenCV clips such edges
   with its own rounding; at most 2 % of such boxes differ, by at most
-  one image row or column's worth of boundary pixels;
-- warpPerspective: at most 0.5 % of pixels differ, by 1 (float32
-  coordinates rounded at other steps than OpenCV's).
+  one image row or column's worth of boundary pixels.
 """
 import cv2
 import numpy as np
@@ -164,24 +163,37 @@ def test_perspective_transform_is_bit_equal():
         )
 
 
+def _warp_case(rng, img, offset: float):
+    """A random text-line quad (corners moved by up to ``offset`` px, which
+    makes the map a true perspective one), its output size and
+    OpenCV's warp of ``img``."""
+    (cx, cy), _, a = _random_rect(rng, 380, 280, 10, 5)
+    rect = ((cx, cy), tuple(rng.uniform([20, 8], [300, 40])), a)
+    quad = pp._order_quad(pp.box_points(rect))
+    if offset:
+        quad = (quad + rng.uniform(-offset, offset, quad.shape)).astype(np.float32)
+    w = int(max(np.linalg.norm(quad[0] - quad[1]), np.linalg.norm(quad[2] - quad[3])))
+    h = int(max(np.linalg.norm(quad[0] - quad[3]), np.linalg.norm(quad[1] - quad[2])))
+    dst = np.array([[0, 0], [w, 0], [w, h], [0, h]], np.float32)
+    m = cv2.getPerspectiveTransform(quad, dst)
+    return m, w, h, cv2.warpPerspective(img, m, (w, h))
+
+
 def test_warp_perspective_matches_opencv():
     rng = np.random.default_rng(10)
     img = rng.integers(0, 256, (300, 400, 3), dtype=np.uint8)
-    pixels = differ = 0
     for _ in range(100):
-        (cx, cy), _, a = _random_rect(rng, 380, 280, 10, 5)
-        rect = ((cx, cy), tuple(rng.uniform([20, 8], [300, 40])), a)
-        quad = pp._order_quad(pp.box_points(rect))
-        w = int(max(np.linalg.norm(quad[0] - quad[1]), np.linalg.norm(quad[2] - quad[3])))
-        h = int(max(np.linalg.norm(quad[0] - quad[3]), np.linalg.norm(quad[1] - quad[2])))
-        dst = np.array([[0, 0], [w, 0], [w, h], [0, h]], np.float32)
-        m = cv2.getPerspectiveTransform(quad, dst)
-        want = cv2.warpPerspective(img, m, (w, h)).astype(int)
-        got = pp.warp_perspective(img, m, w, h).astype(int)
-        assert np.abs(got - want).max() <= 1
-        pixels += w * h
-        differ += int((got != want).any(-1).sum())
-    assert differ <= 0.005 * pixels
+        m, w, h, want = _warp_case(rng, img, 0.0)
+        np.testing.assert_array_equal(pp.warp_perspective(img, m, w, h), want)
+
+
+def test_warp_perspective_matches_opencv_at_subpixel_offsets():
+    rng = np.random.default_rng(12)
+    img = rng.integers(0, 256, (300, 400, 3), dtype=np.uint8)
+    for i in range(100):
+        src = img if i % 4 else img[..., 0]  # a grey image now and then
+        m, w, h, want = _warp_case(rng, src, 0.5)
+        np.testing.assert_array_equal(pp.warp_perspective(src, m, w, h), want)
 
 
 def test_db_postprocess_matches_jax():
