@@ -6,8 +6,9 @@
 Phases, one JSON line each (quant_head and the formula phases one line
 per shape or run):
   card    the card's name and power limit (nvidia-smi)
-  build   nvcc build of every kernel (K1 ctc_head, K2 quant_head), all
-          started together, each timed
+  build   nvcc build of every kernel (K1 ctc_head, K2 quant_head) and of
+          the JPEG entropy decoder (host code), all started together,
+          each timed
   ctc_head  the fused CTC head kernel against its plain PyTorch version
           at the main path's widths (N = 10240 frames, C = 120) for the
           demo (V = 96) and published (V = 18710) vocabularies, timed
@@ -18,6 +19,23 @@ per shape or run):
           held to the JAX package's golden output in its dtype, and the
           det and rec models' bf16-vs-fp32 error held to the JAX
           package's own
+  jpeg    the JPEG decoder on the fixture PDF's three streams: the
+          compiled entropy decode's coefficients equal to the plain
+          version's, the decoded and the rendered pages' sha256 equal to
+          the golden's (PIL's and the JAX package's), ms per page of each;
+          then on the committed matrix (assets/jpeg_matrix.npz: grey,
+          4:4:4, 4:2:2, 4:2:0, sizes not multiples of 16, restart
+          intervals, corrupt streams) the compiled and the plain entropy
+          decode give equal coefficients or the same JpegError, and the
+          decoded pixels' sha256 (or the error) is the one recorded from
+          PIL by tests/test_torch_jpeg.py
+  pipeline  the system's main path, RapidDoc(device="cuda")(pdf,
+          parse_method="ocr") on the fixture PDF with layout, formula
+          and table disabled: fp32 Markdown equal to the JAX package's
+          fp32 golden; bf16 (timed, K1's launches counted and held to the
+          rec dispatches) within limits of the bf16 golden, and the
+          host stages rebuilding its Markdown from its own model output
+          exactly; pages/s, stage ms/page and the device's busy share
   quant_head  the int8 fused head kernel against its plain version at
           the formula decode's widths (N = 4 and 16 rows, K = 512) for
           the demo (V = 57) and published (V = 50000) vocabularies, timed
@@ -34,7 +52,8 @@ per shape or run):
           seed), bf16, length bucket 256, with the int8 head through K2
           and again through its plain version: the token streams must
           be equal
-Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+Then a timing line (seconds by phase), a ``{"kernels": [...]}`` line,
+the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
 that last line. Needs the repository checkout around it and a card.
 """
@@ -71,6 +90,13 @@ BF16_MAX_UNMATCHED, BF16_MIN_EXACT, BF16_MAX_CER = 4, 0.60, 0.05
 # the band, and full fp32 far below it.
 BF16_GAP_BAND = (0.6, 1.5)
 KERNELS = ("ctc_head", "quant_head")
+BUILDS = KERNELS + ("jpeg_entropy",)  # jpeg_entropy: host code, not a kernel
+# The pipeline's bf16 Markdown against the JAX package's bf16 golden: the
+# ocr phase's limits (line share and CER). The port's bf16 on the CPU
+# reads 56/74 lines equal (0.757), CER 0.0083, and the JAX package's own
+# fp32 against its bf16 53/74, CER 0.0247 (``python
+# tests/test_torch_api.py --compare``).
+PIPELINE_BF16_MIN_EXACT, PIPELINE_BF16_MAX_CER = 0.60, 0.05
 QUANT_K = 512  # the formula decoder's d_model
 QUANT_ROWS = (4, 16)  # the decode's batch_chunks sizes
 QUANT_VOCABS = (57, 50000)  # demo vocabulary; published PP-FormulaNet_plus-M
@@ -160,13 +186,13 @@ def phase_build() -> None:
         return name, path, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        built = list(pool.map(timed, KERNELS))
+    with ThreadPoolExecutor(len(BUILDS)) as pool:
+        built = list(pool.map(timed, BUILDS))
     wall = time.perf_counter() - t0
     for name, path, seconds in built:
         build.load(name)
-        emit({"phase": "build", "kernel": name, "seconds": seconds,
-              "all_builds_wall_seconds": wall,
+        emit({"phase": "build", ("kernel" if name in KERNELS else "host_code"): name,
+              "seconds": seconds, "all_builds_wall_seconds": wall,
               "library": str(path.relative_to(ROOT))})
 
 
@@ -657,6 +683,37 @@ def _edits(s: str, t: str) -> int:
     return d[-1]
 
 
+def compare_markdown(got: str, want: str, label: str | None = None) -> dict:
+    """The golden Markdown's non-empty lines against the port's: how many
+    are equal (each port line matched once), and the character error
+    rate, edits over the golden's characters, with the two line lists
+    aligned by difflib and each unequal run of lines compared as one
+    string. With a label, prints each unequal run to stderr."""
+    import difflib
+    from collections import Counter
+
+    want_lines = [ln for ln in want.splitlines() if ln.strip()]
+    got_lines = [ln for ln in got.splitlines() if ln.strip()]
+    pool = Counter(got_lines)
+    exact = 0
+    for ln in want_lines:
+        if pool[ln] > 0:
+            pool[ln] -= 1
+            exact += 1
+    edits = 0
+    matcher = difflib.SequenceMatcher(None, want_lines, got_lines, autojunk=False)
+    for op, i1, i2, j1, j2 in matcher.get_opcodes():
+        if op == "equal":
+            continue
+        w, g = "\n".join(want_lines[i1:i2]), "\n".join(got_lines[j1:j2])
+        edits += _edits(g, w)
+        if label:
+            print(f"[{label}] golden {w!r} port {g!r}", file=sys.stderr)
+    chars = sum(len(ln) for ln in want_lines)
+    return {"lines": len(want_lines), "exact_lines": exact,
+            "exact_share": exact / max(len(want_lines), 1), "cer": edits / max(chars, 1)}
+
+
 def compare_to_golden(got: list, want: list, label: str | None) -> dict:
     """Match each golden line to the port's best-IoU box; count boxes
     with IoU >= 0.9, exact texts and the character error rate. With a
@@ -753,6 +810,182 @@ def phase_ocr() -> int:
     return launches
 
 
+def pipeline_golden() -> dict:
+    return json.loads((ROOT / "rapiddoc_tpu_torch" / "assets"
+                       / "pipeline_smoke_golden.json").read_text())
+
+
+def fixture_pdf() -> bytes:
+    return (ROOT / "rapiddoc_tpu_torch" / "assets" / "ocr_smoke_doc.pdf").read_bytes()
+
+
+def sha256(arr) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def host_ms(fn, runs: int) -> float:
+    """Mean host milliseconds of ``fn`` over ``runs`` calls."""
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / runs
+
+
+def phase_jpeg(golden: dict) -> None:
+    """The JPEG decoder on the fixture PDF's streams, on the host."""
+    import numpy as np
+
+    from rapiddoc_tpu_torch.bench import page_images
+    from rapiddoc_tpu_torch.pdfio import jpeg, open_pdf, render_page_full
+
+    pdf = fixture_pdf()
+    for i, (data, width, height, _) in enumerate(page_images(pdf)):
+        stream = jpeg.parse_jpeg(data)
+        plain = jpeg.decode_coefficients_plain(stream)
+        compiled = jpeg.decode_coefficients_compiled(stream)
+        check(np.array_equal(plain, compiled),
+              f"jpeg page {i}: the compiled entropy decode differs from the plain one")
+        pixels = jpeg.decode_jpeg(data)
+        check(pixels.shape == (height, width, 3), f"jpeg page {i}: shape {pixels.shape}")
+        check(sha256(pixels) == golden["jpeg_sha256"][i],
+              f"jpeg page {i}: decoded pixels differ from PIL's")
+        emit({"phase": "jpeg", "page": i, "bytes": len(data), "blocks": int(plain.shape[0]),
+              "coefficients_equal": True, "pixels_equal_to_pil": True,
+              "entropy_plain_ms": host_ms(lambda: jpeg.decode_coefficients_plain(stream), 1),
+              "entropy_compiled_ms": host_ms(lambda: jpeg.decode_coefficients_compiled(stream), 10),
+              "reconstruct_ms": host_ms(lambda: jpeg.reconstruct(stream, compiled), 3),
+              "decode_ms": host_ms(lambda: jpeg.decode_jpeg(data), 3)})
+    doc = open_pdf(pdf)
+    for i, want in enumerate(golden["page_sha256"]):
+        page = render_page_full(doc.get_page(i), dpi=golden["dpi"], with_text=False)[0]
+        check(sha256(page) == want, f"jpeg: rendered page {i} differs from the JAX package's")
+    emit({"phase": "jpeg", "rendered_pages_equal_to_jax": len(golden["page_sha256"]),
+          "dpi": golden["dpi"]})
+    check_jpeg_matrix()
+
+
+def check_jpeg_matrix() -> None:
+    """Both entropy decoders, and decode_jpeg (the compiled one here),
+    on every stream of the committed matrix: equal coefficients or the
+    same JpegError, and PIL's pixels (their recorded sha256) or the
+    recorded error."""
+    import numpy as np
+
+    from rapiddoc_tpu_torch.pdfio import jpeg
+
+    def outcome(fn, *args):
+        try:
+            return fn(*args)
+        except jpeg.JpegError as e:
+            return f"JpegError: {e}"
+
+    with np.load(ROOT / "rapiddoc_tpu_torch" / "assets" / "jpeg_matrix.npz") as z:
+        matrix = [(str(n), z[f"s{i}"].tobytes(), str(w))
+                  for i, (n, w) in enumerate(zip(z["names"], z["want"]))]
+    faults = 0
+    for name, data, want in matrix:
+        stream = jpeg.parse_jpeg(data)
+        plain = outcome(jpeg.decode_coefficients_plain, stream)
+        compiled = outcome(jpeg.decode_coefficients_compiled, stream)
+        if isinstance(plain, str):
+            check(compiled == plain == want,
+                  f"jpeg matrix {name}: plain {plain!r}, compiled {compiled!r}, recorded {want!r}")
+            faults += 1
+            continue
+        check(not isinstance(compiled, str) and np.array_equal(plain, compiled),
+              f"jpeg matrix {name}: the compiled entropy decode differs from the plain one "
+              f"({compiled if isinstance(compiled, str) else 'other coefficients'})")
+        check(sha256(jpeg.decode_jpeg(data)) == want,
+              f"jpeg matrix {name}: decoded pixels differ from PIL's")
+    emit({"phase": "jpeg", "matrix_streams": len(matrix), "matrix_faults": faults,
+          "coefficients_or_errors_equal": True, "pixels_equal_to_pil": len(matrix) - faults})
+
+
+def host_stages_markdown(out, dims: list, scale: float) -> str:
+    """The Markdown the port's host stages build from ``out.model_json``
+    alone, on the CPU, one window, no threads."""
+    from rapiddoc_tpu_torch.pipeline.middle import result_to_middle_json
+    from rapiddoc_tpu_torch.pipeline.mkcontent import union_make
+    from rapiddoc_tpu_torch.types import MakeMode
+
+    middle = result_to_middle_json(out.model_json, dims, [scale] * len(dims), parse_mode="ocr")
+    return union_make(middle["pdf_info"], MakeMode.MM_MD, "images")
+
+
+def phase_pipeline(golden: dict, card: str) -> int:
+    """The main path through RapidDoc on the card; returns K1's launches
+    in the timed bf16 run. ``card``: the nvidia-smi line, printed beside
+    the times."""
+    import os
+
+    import torch
+
+    for k in ("LAYOUT", "FORMULA", "TABLE"):
+        os.environ[f"RAPIDDOC_DISABLE_{k}"] = "1"
+    from rapiddoc_tpu_torch import RapidDoc
+    from rapiddoc_tpu_torch.bench import STAGES, device_busy_share
+    from rapiddoc_tpu_torch.ops.ctc_head import fused_ctc_argmax
+    from rapiddoc_tpu_torch.pdfio import open_pdf
+    from rapiddoc_tpu_torch.utils.trace import GLOBAL_TRACER
+
+    pdf = fixture_pdf()
+    doc = open_pdf(pdf)
+    dims = [doc.get_page(i).size for i in range(len(doc))]
+    scale = golden["dpi"] / 72.0
+    # fp32 against the JAX package's fp32 golden: the correctness gate
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fp32 = RapidDoc(device="cuda", dtype=torch.float32)(pdf, parse_method="ocr")
+    fp32_vs = compare_markdown(fp32.markdown, golden["fp32"]["markdown"], "pipeline fp32")
+    emit({"phase": "pipeline", "dtype": "fp32", "vs_golden_fp32": fp32_vs,
+          "markdown_equal": fp32.markdown == golden["fp32"]["markdown"],
+          "content_list_equal": fp32.content_list_json == golden["fp32"]["content_list"]})
+    check(fp32.markdown == golden["fp32"]["markdown"],
+          "pipeline fp32: the Markdown differs from the JAX package's fp32 golden")
+
+    rapid = RapidDoc(device="cuda")  # bf16: the main path
+    rapid(pdf, parse_method="ocr")  # warm-up: cuDNN picks its algorithms
+    torch.cuda.synchronize()
+    rec = rapid._stack().analyzer.ocr.recognizer.session.stats
+    GLOBAL_TRACER.reset()
+    calls = rec.calls
+    fused_ctc_argmax.launches = 0
+    t0 = time.perf_counter()
+    out = rapid(pdf, parse_method="ocr")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_ctc_argmax.launches
+    dispatches = rec.calls - calls
+    report = GLOBAL_TRACER.report()
+    check(launches > 0, "the pipeline launched the ctc_head kernel no time")
+    check(launches == dispatches,
+          f"pipeline: {launches} K1 launches for {dispatches} rec dispatches")
+    pages = len(dims)
+    kernel_ms, traced_ms = device_busy_share(lambda: rapid(pdf, parse_method="ocr"))
+    bf16_vs = compare_markdown(out.markdown, golden["bf16"]["markdown"], "pipeline bf16")
+    rebuilt = host_stages_markdown(out, dims, scale)
+    emit({"phase": "pipeline", "dtype": "bf16", "card": card, "pages": pages,
+          "pages_per_s": pages / wall,
+          "stage_ms_per_page": {k: report[k]["total_s"] * 1e3 / pages
+                                for k in STAGES if k in report},
+          "device_busy_share": kernel_ms / traced_ms,
+          "device_kernel_ms_per_page": kernel_ms / pages,
+          "ctc_head_launches": launches, "rec_dispatches": dispatches,
+          "vs_golden_bf16": bf16_vs, "host_stages_exact": rebuilt == out.markdown})
+    check(rebuilt == out.markdown,
+          "pipeline bf16: the host stages build other Markdown from the same model output")
+    check(bf16_vs["exact_share"] >= PIPELINE_BF16_MIN_EXACT,
+          f"pipeline bf16: only {bf16_vs['exact_share']:.3f} of lines equal "
+          f"< {PIPELINE_BF16_MIN_EXACT}")
+    check(bf16_vs["cer"] <= PIPELINE_BF16_MAX_CER,
+          f"pipeline bf16: CER {bf16_vs['cer']:.4f} > {PIPELINE_BF16_MAX_CER}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -767,17 +1000,31 @@ def main() -> int:
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here ({exc})", file=sys.stderr)
         return 2
+    seconds: dict[str, float] = {}
+    t_all = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
     try:
-        card = phase_card()
-        phase_build()
-        k1_all = phase_ctc_head()
-        launches = phase_ocr()
-        k2_all = phase_quant_head()
-        k2_launches = phase_formula()
-        phase_formula_published()
+        card = timed("card", phase_card)
+        timed("build", phase_build)
+        k1_all = timed("ctc_head", phase_ctc_head)
+        ocr_launches = timed("ocr", phase_ocr)
+        golden = pipeline_golden()
+        timed("jpeg", phase_jpeg, golden)
+        launches = timed("pipeline", phase_pipeline, golden, card)
+        k2_all = timed("quant_head", phase_quant_head)
+        k2_launches = timed("formula", phase_formula)
+        timed("formula_published", phase_formula_published)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    emit({"phase": "timing", "seconds_by_phase": seconds,
+          "total_seconds": time.perf_counter() - t_all})
     k1 = k1_all[VOCABS[0]]
     k2 = k2_all[(QUANT_ROWS[-1], QUANT_VOCABS[-1])]
 
@@ -791,7 +1038,10 @@ def main() -> int:
         "name": "ctc_head", "route": "cuda",
         "source": "rapiddoc_tpu_torch/csrc/ctc_head.cu",
         "replaces": "rapiddoc_tpu/ops/ctc_head.py:30",
-        "launches": launches, "max_abs_err": k1["max_abs_err"],
+        # launches: the pipeline's bf16 run (the main path), beside the
+        # OCR system's timed runs
+        "launches": launches, "launches_by_path": {"pipeline": launches, "ocr": ocr_launches},
+        "max_abs_err": k1["max_abs_err"],
         "max_rel_err": k1["max_rel_err"], "matches_plain": True,
         "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],

@@ -1,0 +1,415 @@
+"""RapidDoc facade of the port: the public parse API for PDF bytes.
+
+Port of ``rapiddoc_tpu/api.py`` (``RapidDoc.__call__``, ``_parse_single``,
+``_parse_pipeline``, ``ModelStack``, ``RapidDocOutput``) for the path the
+port runs so far: PDF documents in ``parse_method="ocr"`` (or "txt" /
+"auto") with layout, formula and table disabled
+(``RAPIDDOC_DISABLE_LAYOUT/FORMULA/TABLE=1``). The window loop, its
+render-ahead and assembly threads and the outputs are the JAX package's;
+the port adds its ``device`` (the card by default) and ``dtype`` (bf16 by
+default) arguments. Windows render serially (the JAX package's process
+pool renders the same pages).
+
+Image, Office, URL and sniffed inputs, batched parsing across documents,
+``extract_original_image`` and ``image_output_mode="data_uri"`` raise
+NotImplementedError naming their ROADMAP items. Without formula and
+table no work is deferred across windows, so the JAX package's
+``DeferredAR`` gating of the assembly is not here: each window is
+assembled as soon as it is analysed. A page whose page object is broken renders as a blank
+page, as in the JAX package; anything the port's renderer cannot draw
+raises.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Any, Iterable
+
+import numpy as np
+import torch
+
+from . import pdfio
+from .config import (
+    env_str,
+    formula_enable_default,
+    get_pdf_render_dpi,
+    get_processing_window_size,
+    table_enable_default,
+)
+from .data.io import DataWriter, FanoutDataWriter, FileBasedDataWriter, MemoryDataWriter
+from .pipeline.middle import build_page_infos, finalize_middle_json
+from .pipeline.mkcontent import union_make
+from .types import MakeMode
+from .utils.checkpoint import resolve_checkpoint
+from .utils.logging import get_logger
+from .utils.trace import GLOBAL_TRACER, stage_timer
+from .utils.unported import not_ported
+
+logger = get_logger("rapiddoc_tpu_torch.api")
+
+image_suffixes = (".png", ".jpg", ".jpeg", ".webp", ".gif", ".bmp")
+office_suffixes = (".docx", ".pptx", ".xlsx")
+old_office_suffixes = (".doc", ".ppt", ".xls")
+
+
+@dataclass
+class RapidDocOutput:
+    markdown: str = ""
+    images: dict[str, bytes] = field(default_factory=dict)
+    middle_json: dict[str, Any] | None = None
+    content_list_json: list[Any] | None = None
+    # raw per-page model output ({"layout_dets": [...]} each)
+    model_json: list[dict] | None = None
+    # per-stage {total_s, items, calls, ms_per_item}, cumulative for this
+    # process
+    stage_report: dict[str, dict] | None = None
+
+    def __iter__(self):
+        yield self.markdown
+        yield self.images
+
+
+class ModelStack:
+    """Lazily-built model singleton, keyed by config, device and dtype."""
+
+    _instances: dict[tuple, "ModelStack"] = {}
+
+    def __init__(self, lang: str, formula_enable: bool, table_enable: bool,
+                 configs: dict, device, dtype):
+        from .models.registry import build_analyzer
+
+        self.analyzer = build_analyzer(
+            lang=lang, formula_enable=formula_enable, table_enable=table_enable,
+            configs=configs, device=device, dtype=dtype,
+        )
+
+    # env that changes what build_analyzer produces — part of the cache
+    # identity
+    _ENV_KEYS = (
+        "DISABLE_OCR", "DISABLE_LAYOUT", "DISABLE_FORMULA", "DISABLE_TABLE",
+        "DEMO_LAYOUT", "MODELS_DIR", "CONTRAST_STRETCH",
+        "USE_DOC_ORIENTATION_CLASSIFY",
+    )
+
+    @classmethod
+    def _env_fingerprint(cls) -> tuple:
+        return tuple(env_str(k) for k in cls._ENV_KEYS) + (
+            os.environ.get("USE_DOC_ORIENTATION_CLASSIFY"),
+        )
+
+    @classmethod
+    def get(cls, lang: str, formula_enable: bool, table_enable: bool,
+            configs: dict | None = None, device=None, dtype=None) -> "ModelStack":
+        key = (lang, formula_enable, table_enable,
+               repr(sorted((configs or {}).items())), cls._env_fingerprint(),
+               str(device), str(dtype))
+        if key not in cls._instances:
+            cls._instances[key] = cls(lang, formula_enable, table_enable, configs or {},
+                                      device, dtype)
+        return cls._instances[key]
+
+
+class RapidDoc:
+    def __init__(
+        self,
+        layout_config: dict[str, Any] | None = None,
+        ocr_config: dict[str, Any] | None = None,
+        formula_config: dict[str, Any] | None = None,
+        table_config: dict[str, Any] | None = None,
+        checkbox_config: dict[str, Any] | None = None,
+        image_config: dict[str, Any] | None = None,
+        parse_method: str = "auto",
+        formula_enable: bool = True,
+        table_enable: bool = True,
+        lang: str = "ch",
+        make_md_mode: str = MakeMode.MM_MD,
+        output_dir: str | Path | None = None,
+        image_writer: DataWriter | None = None,
+        md_writer: DataWriter | None = None,
+        image_dir_name: str = "images",
+        image_output_mode: str = "url",
+        preload_model: bool = False,
+        pdf_pages_batch: int | None = None,
+        checkpoint_dir: str | Path | None = None,
+        device: str | torch.device | None = None,
+        dtype: torch.dtype | None = None,
+    ) -> None:
+        self.layout_config = layout_config or {}
+        self.ocr_config = ocr_config or {}
+        self.formula_config = formula_config or {}
+        self.table_config = table_config or {}
+        self.checkbox_config = checkbox_config or {}
+        self.image_config = image_config or {}
+        self.parse_method = parse_method
+        self.formula_enable = formula_enable_default(formula_enable)
+        self.table_enable = table_enable_default(table_enable)
+        self.lang = lang
+        self.make_md_mode = make_md_mode
+        self.default_output_dir = output_dir
+        self.default_image_writer = image_writer
+        self.default_md_writer = md_writer
+        self.image_dir_name = image_dir_name or "images"
+        if image_output_mode not in ("url", "data_uri"):
+            raise ValueError("image_output_mode must be 'url' or 'data_uri'")
+        if image_output_mode == "data_uri":
+            # it embeds span images, whose payloads the port cannot make yet
+            raise not_ported("image_output_mode='data_uri'", "span_jpeg")
+        self.image_output_mode = image_output_mode
+        self.pdf_pages_batch = (
+            pdf_pages_batch if pdf_pages_batch is not None
+            else get_processing_window_size()
+        )
+        # neither the ctor arg nor the env pinned a window: the parse
+        # loop may shrink it per document so the render/compute/assembly
+        # pipeline has >= 3 windows of depth
+        self._window_auto = (
+            pdf_pages_batch is None and env_str("PROCESSING_WINDOW_SIZE") is None
+        )
+        self.checkpoint_dir = checkpoint_dir
+        self.device = device
+        self.dtype = dtype
+        if preload_model:
+            self.warmup()
+
+    def _stack(self, lang: str | None = None, formula_enable: bool | None = None,
+               table_enable: bool | None = None) -> ModelStack:
+        return ModelStack.get(
+            lang or self.lang,
+            self.formula_enable if formula_enable is None else formula_enable,
+            self.table_enable if table_enable is None else table_enable,
+            {
+                "layout": self.layout_config,
+                "ocr": self.ocr_config,
+                "formula": self.formula_config,
+                "table": self.table_config,
+                "checkbox": self.checkbox_config,
+            },
+            self.device, self.dtype,
+        )
+
+    # -------------------------------------------------------------- warmup
+
+    def warmup(self, lang: str | None = None, formula_enable: bool | None = None,
+               table_enable: bool | None = None, precompile: bool = False) -> None:
+        """Build the model stack; with `precompile`, also run a blank page
+        through the OCR system."""
+        stack = self._stack(lang, formula_enable, table_enable)
+        if precompile and stack.analyzer.ocr is not None:
+            stack.analyzer.ocr([np.full((1056, 816, 3), 255, np.uint8)])
+
+    # ---------------------------------------------------------------- call
+
+    def __call__(
+        self,
+        inputs: str | bytes | Path | Iterable,
+        output_dir: str | Path | None = None,
+        **overrides: Any,
+    ) -> RapidDocOutput | list[RapidDocOutput]:
+        if isinstance(inputs, (bytearray, memoryview)):
+            inputs = bytes(inputs)
+        if isinstance(inputs, np.ndarray):
+            raise not_ported("image inputs", "pdfio")
+        if isinstance(inputs, (str, bytes, Path)):
+            return self._parse_single(inputs, output_dir, **overrides)
+        if output_dir is None and not overrides:
+            raise not_ported("batched parsing across documents (parse_batch)", "pdfio")
+        return [self._parse_single(item, output_dir, **overrides) for item in inputs]
+
+    def _parse_single(
+        self, item: str | bytes | Path, output_dir: str | Path | None, **overrides
+    ) -> RapidDocOutput:
+        pdf_bytes, name = self._normalize_input(item)
+        return self._parse_pipeline(pdf_bytes, name, output_dir, **overrides)
+
+    # ------------------------------------------------------------ pipeline
+
+    def _parse_pipeline(
+        self, pdf_bytes: bytes, name: str, output_dir: str | Path | None,
+        **overrides,
+    ) -> RapidDocOutput:
+        parse_method = overrides.get("parse_method", self.parse_method)
+        if parse_method == "auto":
+            parse_method = pdfio.classify_pdf(pdf_bytes)
+        logger.info("parsing %s as %s", name, parse_method)
+        if self.image_config.get("extract_original_image"):
+            raise not_ported("extract_original_image", "pdfio")
+
+        mem_writer = MemoryDataWriter(self.image_dir_name)
+        writers: list[DataWriter] = [mem_writer]
+        out_dir = output_dir or self.default_output_dir
+        if out_dir:
+            img_dir = Path(out_dir) / name / self.image_dir_name
+            writers.append(FileBasedDataWriter(str(img_dir)))
+        if self.default_image_writer is not None:
+            writers.append(self.default_image_writer)
+        image_writer = FanoutDataWriter(*writers)
+
+        stack = self._stack(overrides.get("lang", self.lang))
+
+        doc = pdfio.open_pdf(pdf_bytes)
+        n_pages = len(doc)
+        dpi = get_pdf_render_dpi()
+        scale = dpi / 72.0
+        window = max(1, self.pdf_pages_batch)
+        if self._window_auto and n_pages > 16:
+            # pipeline depth >= 3 windows lets render(N+1) and
+            # assembly(N-1) hide under device compute of window N; short
+            # docs run as one window
+            window = min(window, max(16, math.ceil(n_pages / 3)))
+
+        all_model_infos: list[dict] = []
+
+        def render_window(start: int):
+            """Render one window of pages (host work, overlappable)."""
+            idxs = list(range(start, min(start + window, n_pages)))
+            w_imgs, w_text, w_boxes, dims = [], [], [], []
+            with stage_timer("render", len(idxs)):
+                for i in idxs:
+                    try:
+                        page = doc.get_page(i)
+                        size = page.size
+                    except Exception:
+                        # per-page failure isolation: a broken page object
+                        # becomes a blank placeholder
+                        logger.exception("page %d failed to render", i)
+                        w_imgs.append(np.full((int(792 * scale), int(612 * scale), 3),
+                                              255, np.uint8))
+                        w_text.append(None)
+                        w_boxes.append([])
+                        dims.append((612.0, 792.0))
+                        continue
+                    img, tdict, boxes = pdfio.render_page_full(
+                        page, dpi=dpi, with_text=(parse_method == "txt"),
+                    )
+                    w_imgs.append(img)
+                    w_text.append(tdict)
+                    w_boxes.append(boxes)
+                    dims.append(size)
+            return w_imgs, w_text, w_boxes, dims
+
+        ckpt = resolve_checkpoint(
+            self.checkpoint_dir, pdf_bytes, parse_method, dpi, window
+        )
+        starts = list(range(0, n_pages, window))
+
+        def assemble_window(start, infos, dims, w_imgs, w_text):
+            with stage_timer("assembly", len(infos)):
+                return build_page_infos(
+                    infos, dims, [scale] * len(infos),
+                    page_imgs=w_imgs, page_text_dicts=w_text,
+                    parse_mode=parse_method, image_writer=image_writer,
+                    page_idx_offset=start, image_config=self.image_config,
+                )
+
+        asm_futures = []
+
+        # three-stage window pipeline: render window N+1 on a prefetch
+        # thread AND assemble window N-1 on an assembly thread while the
+        # device runs window N
+        with ThreadPoolExecutor(max_workers=1) as pool, ThreadPoolExecutor(
+            max_workers=1
+        ) as asm_pool:
+            future = pool.submit(render_window, starts[0]) if starts else None
+            for wi, start in enumerate(starts):
+                w_imgs, w_text, w_boxes, dims = future.result()
+                if wi + 1 < len(starts):
+                    future = pool.submit(render_window, starts[wi + 1])
+                infos = ckpt.load(start) if ckpt is not None else None
+                if infos is None:
+                    infos = stack.analyzer.analyze_pages(
+                        w_imgs, [parse_method] * len(w_imgs), w_text, w_boxes,
+                        [scale] * len(w_imgs),
+                    )
+                    if ckpt is not None:
+                        ckpt.save(start, infos)
+                else:
+                    logger.info("window %d resumed from checkpoint", start)
+                asm_futures.append(
+                    asm_pool.submit(assemble_window, start, infos, dims, w_imgs, w_text)
+                )
+                all_model_infos.extend(infos)
+            page_infos = [p for f in asm_futures for p in f.result()]
+
+        with stage_timer("assembly_final", n_pages):
+            middle_json = finalize_middle_json(page_infos, parse_method)
+
+        img_prefix = self.image_dir_name
+        markdown = union_make(middle_json["pdf_info"], self.make_md_mode, img_prefix)
+        content_list = union_make(
+            middle_json["pdf_info"], MakeMode.CONTENT_LIST, img_prefix
+        )
+        images = {
+            f"{self.image_dir_name}/{k}": v for k, v in mem_writer.data.items()
+        }
+
+        if out_dir:
+            md_writer = FileBasedDataWriter(str(Path(out_dir) / name))
+            md_writer.write_string(f"{name}.md", markdown)
+            md_writer.write_string(
+                f"{name}_middle.json", json.dumps(middle_json, ensure_ascii=False,
+                                                  default=str)
+            )
+            md_writer.write_string(
+                f"{name}_content_list.json",
+                json.dumps(content_list, ensure_ascii=False, default=str),
+            )
+        if self.default_md_writer is not None:
+            self.default_md_writer.write_string(f"{name}.md", markdown)
+
+        report = GLOBAL_TRACER.report()
+        if report:
+            logger.info(
+                "stage ms/page: %s",
+                {k: v["ms_per_item"] for k, v in report.items()},
+            )
+        return RapidDocOutput(
+            markdown=markdown,
+            images=images,
+            middle_json=middle_json,
+            content_list_json=content_list,
+            model_json=all_model_infos,
+            stage_report=report,
+        )
+
+    # --------------------------------------------------------------- input
+
+    def _normalize_input(self, item: str | bytes | Path) -> tuple[bytes, str]:
+        """(pdf_bytes, doc_name); raises for the inputs the JAX package
+        turns into PDF bytes or routes to its office path."""
+        if isinstance(item, (str, Path)):
+            s = str(item)
+            if s.startswith(("http://", "https://")):
+                raise not_ported("URL inputs", "host_families")
+            data = Path(s).read_bytes()
+            name = Path(s).name
+        else:
+            data = bytes(item)
+            name = str(getattr(item, "name", "") or "document")
+        stem, suffix = os.path.splitext(name)
+        suffix = suffix.lower()
+        stem = stem or "document"
+        if suffix in office_suffixes + old_office_suffixes or _sniff_office(data):
+            raise not_ported("Office documents", "host_families")
+        if suffix in image_suffixes or _sniff_image(data):
+            raise not_ported("image inputs", "pdfio")
+        known = image_suffixes + office_suffixes + old_office_suffixes + (".pdf",)
+        if suffix not in known and data[:4] != b"%PDF":
+            raise not_ported("content sniffing of inputs without a suffix", "sniff")
+        return data, stem
+
+
+def _sniff_image(data: bytes) -> bool:
+    return data[:4] in (b"\x89PNG", b"RIFF") or data[:3] == b"\xff\xd8\xff" or data[:6] in (
+        b"GIF87a", b"GIF89a"
+    )
+
+
+def _sniff_office(data: bytes) -> bool:
+    if data[:4] != b"PK\x03\x04":
+        return False
+    head = data[:4096]
+    return b"word/" in head or b"ppt/" in head or b"xl/" in head

@@ -1,0 +1,201 @@
+"""GPU bench of the port's main path: ``RapidDoc()(pdf, parse_method="ocr")``.
+
+    python3 -m rapiddoc_tpu_torch.bench [--pages 56] [--dtype bf16] [--device cuda]
+
+The counterpart of ``bench.py``'s ``_bench_e2e`` in its OCR-only form
+(layout, formula and table disabled, ``RAPIDDOC_DISABLE_*=1``): an
+N-page PDF (56 by default, as ``bench.py``) of synthetic text pages
+embedded as JPEG at quality 92, 144 dpi. The pages repeat the committed
+fixture PDF's three JPEG streams (``assets/ocr_smoke_doc.pdf``, written
+by the JAX package's ``images_to_pdf``), each page with the page dict
+and content stream ``images_to_pdf`` writes. One warm-up pass, two timed
+passes, then one pass under ``torch.profiler`` for the device's busy
+share (kernel time over wall time; not counted in pages/s).
+
+Prints the card's name and power limit, then one JSON line with
+``bench.py``'s keys: ``pages_per_sec`` (and each run's), ``stage_ms_per_page``
+(render, ocr_det, ocr_crop, ocr_rec, assembly, assembly_final, and ocr,
+which holds det, crop and rec), ``ocr_rec_detail`` (crops, session
+calls, crops/s, K1 launches) and ``device_busy_share``. On the CPU
+(``--device cpu``) it runs the same path for rehearsal and reports no
+device numbers.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+PDF = Path(__file__).resolve().parent / "assets" / "ocr_smoke_doc.pdf"
+STAGES = ("render", "ocr_det", "ocr_crop", "ocr_rec", "ocr", "assembly", "assembly_final")
+
+
+def page_images(pdf: bytes) -> list[tuple[bytes, int, int, str]]:
+    """(JPEG bytes, width, height, colour space) of each page's image."""
+    from .pdfio import open_pdf
+
+    doc = open_pdf(pdf)
+    out = []
+    for i in range(len(doc)):
+        page = doc.get_page(i)
+        xobjs = doc.resolve(page.resources.get("XObject"))
+        stream = doc.resolve(xobjs["Im0"])
+        d = {k: doc.resolve(v) for k, v in stream.dict.items()}
+        if d.get("Filter") != "DCTDecode":
+            raise ValueError(f"page {i}: expected one DCTDecode image")
+        out.append((stream.raw, int(d["Width"]), int(d["Height"]), str(d["ColorSpace"])))
+    return out
+
+
+def build_pdf(images: list[tuple[bytes, int, int, str]], n_pages: int, dpi: int = 144) -> bytes:
+    """An n_pages PDF cycling through ``images``, each page as
+    ``images_to_pdf`` writes it: the JPEG as an image XObject, a page of
+    the image's size at ``dpi``, and ``q w 0 0 h 0 0 cm /Im0 Do Q``."""
+    objs: list[bytes] = []
+
+    def add(body: bytes) -> int:
+        objs.append(body)
+        return len(objs)
+
+    def stream(head: str, data: bytes) -> bytes:
+        return f"<< {head} /Length {len(data)} >>\nstream\n".encode() + data + b"\nendstream"
+
+    add(b"<< /Type /Catalog /Pages 2 0 R >>")
+    add(b"")  # the page tree, written once the pages are known
+    kids = []
+    for i in range(n_pages):
+        jpeg, w, h, cs = images[i % len(images)]
+        img = add(stream(f"/Type /XObject /Subtype /Image /Width {w} /Height {h} "
+                         f"/ColorSpace /{cs} /BitsPerComponent 8 /Filter /DCTDecode", jpeg))
+        pw, ph = w * 72.0 / dpi, h * 72.0 / dpi
+        content = add(stream("", f"q {pw:.2f} 0 0 {ph:.2f} 0 0 cm /Im0 Do Q".encode()))
+        kids.append(add(
+            f"<< /Type /Page /Parent 2 0 R /MediaBox [0 0 {round(pw, 2)} {round(ph, 2)}] "
+            f"/Resources << /XObject << /Im0 {img} 0 R >> >> /Contents {content} 0 R >>".encode()
+        ))
+    objs[1] = (f"<< /Type /Pages /Kids [{' '.join(f'{k} 0 R' for k in kids)}] "
+               f"/Count {len(kids)} >>").encode()
+    out = bytearray(b"%PDF-1.7\n")
+    offsets = []
+    for num, body in enumerate(objs, 1):
+        offsets.append(len(out))
+        out += f"{num} 0 obj\n".encode() + body + b"\nendobj\n"
+    xref = len(out)
+    out += f"xref\n0 {len(objs) + 1}\n0000000000 65535 f \n".encode()
+    out += b"".join(f"{o:010d} 00000 n \n".encode() for o in offsets)
+    out += (f"trailer\n<< /Size {len(objs) + 1} /Root 1 0 R >>\n"
+            f"startxref\n{xref}\n%%EOF\n").encode()
+    return bytes(out)
+
+
+def card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def device_busy_share(fn) -> tuple[float, float]:
+    """(device kernel ms, wall ms) of one traced call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernel_us = sum(e.device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    return kernel_us / 1e3, wall * 1e3
+
+
+def run(n_pages: int, device: str, dtype: torch.dtype, runs: int = 2) -> dict:
+    for k in ("LAYOUT", "FORMULA", "TABLE"):
+        os.environ.setdefault(f"RAPIDDOC_DISABLE_{k}", "1")
+    from . import RapidDoc
+    from .ops.ctc_head import fused_ctc_argmax
+    from .utils.trace import GLOBAL_TRACER
+
+    pdf = build_pdf(page_images(PDF.read_bytes()), n_pages)
+    doc = RapidDoc(device=device, dtype=dtype)
+    cuda = torch.device(device).type == "cuda"
+
+    def parse():
+        out = doc(pdf, parse_method="ocr")
+        if cuda:
+            torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    parse()  # warm-up: model build, kernel builds, cuDNN's algorithm picks
+    warmup_s = time.perf_counter() - t0
+    rec = doc._stack().analyzer.ocr.recognizer.session.stats
+    walls = []
+    for _ in range(runs):
+        GLOBAL_TRACER.reset()
+        crops0, calls0, launches0 = rec.items, rec.calls, fused_ctc_argmax.launches
+        t0 = time.perf_counter()
+        out = parse()
+        walls.append(time.perf_counter() - t0)
+        if not out.markdown:
+            raise RuntimeError("the parse produced no Markdown")
+    report = GLOBAL_TRACER.report()
+    crops, calls = rec.items - crops0, rec.calls - calls0
+    rec_s = report.get("ocr_rec", {}).get("total_s", 0.0)
+    result = {
+        "metric": "e2e_ocr_pages_per_sec",
+        "pages": n_pages,
+        "pages_per_sec": n_pages * len(walls) / sum(walls),
+        "pages_per_sec_runs": [n_pages / w for w in walls],
+        "warmup_s": warmup_s,
+        "stage_ms_per_page": {
+            k: report[k]["total_s"] * 1e3 / n_pages for k in STAGES if k in report
+        },
+        "ocr_rec_detail": {
+            "crops": crops, "session_calls": calls,
+            "crops_per_sec": crops / rec_s if rec_s else None,
+            "ctc_head_launches": fused_ctc_argmax.launches - launches0,
+        },
+        "device": str(torch.device(device)), "dtype": str(dtype).removeprefix("torch."),
+    }
+    if cuda:
+        kernel_ms, wall_ms = device_busy_share(parse)
+        result.update({
+            "device_busy_share": kernel_ms / wall_ms,
+            "device_kernel_ms_per_page": kernel_ms / n_pages,
+            "traced_wall_ms_per_page": wall_ms / n_pages,
+            "kind": torch.cuda.get_device_name(0),
+        })
+    return result
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--pages", type=int, default=56)
+    ap.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    if torch.device(args.device).type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("bench: CUDA is not available (pass --device cpu to rehearse)")
+        smi = card()
+        print(smi, flush=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    result = run(args.pages, args.device, dtype)
+    if torch.device(args.device).type == "cuda":
+        result["card"] = smi
+    print(json.dumps(result), flush=True)
+
+
+if __name__ == "__main__":
+    main()

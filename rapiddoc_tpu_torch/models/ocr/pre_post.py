@@ -69,13 +69,81 @@ def resize_linear(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
         return ((q + 2) >> 2).astype(np.uint8)
     x0, x1, a0, a1 = _linear_taps(w, out_w)
     y0, y1, b0, b1 = _linear_taps(h, out_h)
-    s = img.astype(np.int64)
+    # int32 holds every step: a tap sum is at most 255 << 11, and a row
+    # weight (at most 1 << 11) times a tap sum >> 4 stays under 1 << 27
     extra = (None,) * (img.ndim - 2)
-    hor = s[:, x0] * a0[(slice(None),) + extra] + s[:, x1] * a1[(slice(None),) + extra]
-    bb0 = b0[(slice(None), None) + extra]
-    bb1 = b1[(slice(None), None) + extra]
-    out = (((bb0 * (hor[y0] >> 4)) >> 16) + ((bb1 * (hor[y1] >> 4)) >> 16) + 2) >> 2
+    cols = (slice(None),) + extra
+    hor = img[:, x0].astype(np.int32) * a0.astype(np.int32)[cols]
+    hor += img[:, x1].astype(np.int32) * a1.astype(np.int32)[cols]
+    hor >>= 4
+    rows = (slice(None), None) + extra
+    out = (b0.astype(np.int32)[rows] * hor[y0]) >> 16
+    out += (b1.astype(np.int32)[rows] * hor[y1]) >> 16
+    out += 2
+    out >>= 2
     return out.astype(np.uint8)
+
+
+def _area_taps(src: int, dst: int, scale: float):
+    """OpenCV's computeResizeAreaTab for one axis: for each destination
+    index its source indices and float32 weights, padded with weight 0
+    to the longest list."""
+    taps: list[list[tuple[int, float]]] = []
+    for d in range(dst):
+        fs1 = d * scale
+        fs2 = fs1 + scale
+        cell = min(scale, src - fs1)
+        s1, s2 = math.ceil(fs1), math.floor(fs2)
+        s2 = min(s2, src - 1)
+        s1 = min(s1, s2)
+        row = []
+        if s1 - fs1 > 1e-3:
+            row.append((s1 - 1, (s1 - fs1) / cell))
+        row += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if fs2 - s2 > 1e-3:
+            row.append((s2, min(min(fs2 - s2, 1.0), cell) / cell))
+        taps.append(row)
+    k = max(len(t) for t in taps)
+    idx = np.zeros((dst, k), np.int64)
+    wts = np.zeros((dst, k), np.float32)
+    for d, row in enumerate(taps):
+        for j, (s, a) in enumerate(row):
+            idx[d, j], wts[d, j] = s, a
+    return idx, wts
+
+
+def resize_area(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """``cv2.resize(img, (out_w, out_h), interpolation=INTER_AREA)`` for
+    uint8 HW or HWC images that shrink along both axes, bit for bit: an
+    exact 2x as the rounded 2x2 box, another integer factor as OpenCV's
+    float32 box mean, any other factor as its float32 area weights,
+    summed in its order (along x per source row, then the rows)."""
+    h, w = img.shape[:2]
+    scale_x, scale_y = w / out_w, h / out_h
+    if scale_x < 1 or scale_y < 1:
+        from ...utils.unported import not_ported
+
+        raise not_ported("INTER_AREA resizing that enlarges an axis", "pdfio")
+    ix, iy = round(scale_x), round(scale_y)
+    src = img.reshape(h, w, -1)
+    if abs(scale_x - ix) < 2.220446049250313e-16 and abs(scale_y - iy) < 2.220446049250313e-16:
+        s = src.reshape(out_h, iy, out_w, ix, src.shape[2]).astype(np.int32).sum(axis=(1, 3))
+        if ix == iy == 2:
+            out = (s + 2) >> 2
+        else:
+            out = np.rint(s.astype(np.float32) * np.float32(1.0 / (ix * iy)))
+        return out.astype(np.uint8).reshape((out_h, out_w) + img.shape[2:])
+    xi, xw = _area_taps(w, out_w, scale_x)
+    yi, yw = _area_taps(h, out_h, scale_y)
+    s = src.astype(np.float32)
+    buf = s[:, xi[:, 0]] * xw[None, :, 0, None]
+    for j in range(1, xi.shape[1]):
+        buf += s[:, xi[:, j]] * xw[None, :, j, None]
+    acc = yw[:, 0, None, None] * buf[yi[:, 0]]
+    for j in range(1, yi.shape[1]):
+        acc += yw[:, j, None, None] * buf[yi[:, j]]
+    out = np.clip(np.rint(acc), 0, 255).astype(np.uint8)
+    return out.reshape((out_h, out_w) + img.shape[2:])
 
 
 def rgb_to_gray(img: np.ndarray) -> np.ndarray:

@@ -10,6 +10,11 @@ as the published 18,710-entry ``ppocrv6_small_dict.txt``; the head is
 then random-init (from ``HEAD_SEED``) at that width over the demo
 backbone and neck.
 
+``build_analyzer`` is the JAX package's ``build_analyzer``
+(``rapiddoc_tpu/models/registry.py:194-260``) as it builds under
+``RAPIDDOC_DISABLE_LAYOUT/FORMULA/TABLE=1``: the OCR system and the
+document analyzer around it.
+
 ``build_formula_recognizer`` is the demo branch of
 ``FormulaRecognizer.build`` (``rapiddoc_tpu/models/formula/engine.py:197-236``):
 ``formula_demo.npz`` + ``formula_demo.json`` (PPHGNetV2-B0 encoder, a
@@ -18,12 +23,17 @@ backbone and neck.
 from __future__ import annotations
 
 import json
+import os
 import string
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..config import env_bool, get_models_dir
+from ..pipeline.scheduler import DocumentAnalyzer
+from ..utils.logging import get_logger
+from ..utils.unported import not_ported
 from .formula.engine import DemoFormulaVocab, FormulaConfig, FormulaRecognizer
 from .ocr.det import DBNet
 from .ocr.engine import TextDetector, TextRecognizer, TextSystem
@@ -39,6 +49,8 @@ PUBLISHED_DICT = DEMO_ASSETS_DIR / "ppocrv6_small_dict.txt"
 DEMO_CHARSET = [c for c in string.printable[:94] if c != " "]
 # seed of the random-init head that goes with a dictionary of charset_path
 HEAD_SEED = 0
+
+logger = get_logger("rapiddoc_tpu_torch.registry")
 
 
 def build_ocr_system(
@@ -92,3 +104,62 @@ def build_formula_recognizer(
     )
     rec.tokenizer = DemoFormulaVocab(vocab)
     return rec
+
+
+def build_analyzer(
+    lang: str = "ch",
+    formula_enable: bool = True,
+    table_enable: bool = True,
+    configs: dict | None = None,
+    device: str | torch.device | None = None,
+    dtype: torch.dtype | None = None,
+) -> DocumentAnalyzer:
+    """The document analyzer over the demo OCR system on ``device`` (the
+    card by default) in ``dtype`` (bf16 by default). Raises
+    NotImplementedError, naming its ROADMAP item, where the JAX package
+    would build a stage the port does not have yet: layout unless
+    RAPIDDOC_DISABLE_LAYOUT is set, the formula and table stages when
+    enabled unless RAPIDDOC_DISABLE_FORMULA / _TABLE is set, custom
+    models, orientation, checkboxes, other languages and published OCR
+    checkpoints."""
+    configs = configs or {}
+    for stage, cfg in configs.items():
+        if isinstance(cfg, dict) and (
+            "engine_cfg" in cfg or "use_cuda" in cfg or "use_cann" in cfg
+        ):
+            logger.warning(
+                "%s config: engine_cfg/use_cuda/use_cann are reference "
+                "onnxruntime knobs; ignored (the port runs on the device "
+                "it is given)", stage,
+            )
+        if isinstance(cfg, dict) and cfg.get("custom_model") is not None:
+            raise not_ported(f"a custom {stage} model", "host_families")
+    if not os.environ.get("RAPIDDOC_DISABLE_LAYOUT"):
+        raise not_ported("the layout model (set RAPIDDOC_DISABLE_LAYOUT=1)", "layout")
+    if formula_enable and not os.environ.get("RAPIDDOC_DISABLE_FORMULA"):
+        raise not_ported("the formula stage (set RAPIDDOC_DISABLE_FORMULA=1)", "formula")
+    if table_enable and not os.environ.get("RAPIDDOC_DISABLE_TABLE"):
+        raise not_ported("the table stage (set RAPIDDOC_DISABLE_TABLE=1)", "table")
+    if env_bool("USE_DOC_ORIENTATION_CLASSIFY") or os.environ.get(
+        "USE_DOC_ORIENTATION_CLASSIFY", ""
+    ).lower() in ("1", "true", "yes"):
+        raise not_ported("the orientation classifier", "orientation_seal")
+    checkbox_cfg = configs.get("checkbox") or {}
+    if checkbox_cfg.get("checkbox_enable", checkbox_cfg.get("enable", False)):
+        raise not_ported("checkbox detection", "host_families")
+    ocr = None
+    if not os.environ.get("RAPIDDOC_DISABLE_OCR"):
+        ocr_cfg = configs.get("ocr") or {}
+        if lang not in ("ch", "en", "", None):
+            raise not_ported(f"OCR for lang={lang!r}", "ocr_family")
+        if int(ocr_cfg.get("Det.limit_side_len", 960)) != 960 or os.environ.get(
+            "RAPIDDOC_CONTRAST_STRETCH"
+        ) is not None:
+            raise not_ported("the OCR knobs", "ocr_family")
+        models_dir = get_models_dir()
+        if any((models_dir / f).is_file() for f in ("ocr_det_v6_small.npz", "ocr_rec_v6_small.npz")):
+            raise not_ported(f"published OCR checkpoints in {models_dir}", "ocr_family")
+        ocr = build_ocr_system(device=device, dtype=dtype)
+    return DocumentAnalyzer(
+        ocr_system=ocr, formula_enable=formula_enable, table_enable=table_enable,
+    )

@@ -1,0 +1,32 @@
+"""What the port does not run yet, by its ROADMAP item.
+
+Every part of the JAX package that the port has not ported raises
+``NotImplementedError`` through ``not_ported`` where the port would need
+it, naming the ROADMAP Queue 1 item that ports it. Nothing is skipped or
+left blank in its place.
+"""
+from __future__ import annotations
+
+# ROADMAP.md, Queue 1: item number and title of each item the port
+# raises for
+ITEMS = {
+    "span_jpeg": (4, "JPEG encoder for span images"),
+    "small_resize": (5, "PIL-BILINEAR resize of small placed images"),
+    "ocr_family": (7, "the rest of the OCR family"),
+    "layout": (8, "layout"),
+    "formula": (9, "formula inside the pipeline"),
+    "table": (10, "table"),
+    "orientation_seal": (11, "orientation and seal"),
+    "pdfio": (12, "the rest of pdfio/ and pipeline/"),
+    "sniff": (13, "ONNX interpreter and sniffing"),
+    "host_families": (15, "the host-only families"),
+}
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error to raise where the port reaches ``what``, which ROADMAP
+    Queue 1 item ``item`` (a key of ITEMS) ports."""
+    number, title = ITEMS[item]
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP Queue 1 item {number}: {title})"
+    )

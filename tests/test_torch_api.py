@@ -1,0 +1,317 @@
+"""The port's RapidDoc against the JAX package's, end to end on the CPU.
+
+The fixture PDF (``rapiddoc_tpu_torch/assets/ocr_smoke_doc.pdf``: the
+three OCR fixture pages written by the JAX package's
+``pdfio.images_to_pdf(..., dpi=144)``, as ``bench.py`` writes its PDF)
+and the golden (``pipeline_smoke_golden.json``: the JAX package's
+``RapidDoc()(pdf, parse_method="ocr")`` with layout, formula and table
+disabled, in fp32 and in bf16) that ``chip_smoke.py`` checks the card
+against are rebuilt here from the JAX package: the PDF must equal the
+committed file, and the golden's decoded and rendered pages and its
+classification must equal what the JAX package gives now (its first
+page's model output and its host stages are held to the JAX package in
+``test_torch_pipeline.py``; the full three-page JAX run is the
+generator's). Then the port, on the CPU, must give the fp32 golden's
+Markdown exactly, and in bf16 meet the limits ``chip_smoke.py`` holds
+the card's bf16 run to; and its stages that the port does not have yet
+must raise.
+
+Rebuild both files with ``python tests/test_torch_api.py``; ``python
+tests/test_torch_api.py --compare`` prints the port's bf16 reading on
+the CPU against the bf16 golden (the source of chip_smoke.py's limits).
+"""
+import hashlib
+import importlib.util
+import json
+import os
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+ASSETS = REPO / "rapiddoc_tpu_torch" / "assets"
+PAGES_NPZ = ASSETS / "ocr_smoke_pages.npz"
+DOC_PDF = ASSETS / "ocr_smoke_doc.pdf"
+GOLDEN_JSON = ASSETS / "pipeline_smoke_golden.json"
+PDF_DPI = 144  # bench.py _bench_pdf_bytes
+DISABLED = ("LAYOUT", "FORMULA", "TABLE")
+
+
+def make_pdf() -> bytes:
+    """The fixture pages as the JAX package's bench writes its PDF."""
+    from PIL import Image
+
+    from rapiddoc_tpu import pdfio
+
+    with np.load(PAGES_NPZ) as z:
+        pages = z["pages"]
+    return pdfio.images_to_pdf([Image.fromarray(p) for p in pages], dpi=PDF_DPI)
+
+
+def plain(obj):
+    """JSON-ready: numpy scalars and arrays as Python values, tuples as
+    lists."""
+    if isinstance(obj, dict):
+        return {k: plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [plain(v) for v in obj]
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    if isinstance(obj, np.generic):
+        return obj.item()
+    return obj
+
+
+class held_env:
+    """RAPIDDOC_DISABLE_LAYOUT/FORMULA/TABLE=1 with every other
+    RAPIDDOC_*/MINERU_* setting held off (other test files set some, such
+    as RAPIDDOC_DISABLE_OCR, when they are imported), plus ``extra``."""
+
+    def __init__(self, **extra: str):
+        self.extra = extra
+
+    def __enter__(self):
+        self.saved = {k: v for k, v in os.environ.items()
+                      if k.startswith(("RAPIDDOC_", "MINERU_"))}
+        for k in self.saved:
+            del os.environ[k]
+        for k in DISABLED:
+            os.environ[f"RAPIDDOC_DISABLE_{k}"] = "1"
+        os.environ.update(self.extra)
+        return self
+
+    def __exit__(self, *exc):
+        for k in [k for k in os.environ if k.startswith(("RAPIDDOC_", "MINERU_"))]:
+            del os.environ[k]
+        os.environ.update(self.saved)
+
+
+class jax_env(held_env):
+    """held_env (with RAPIDDOC_FP32_PARAMS=1 for fp32), the JAX package's
+    model-stack cache emptied on the way in and out (its key does not
+    hold the precision)."""
+
+    def __init__(self, fp32: bool):
+        super().__init__(**({"RAPIDDOC_FP32_PARAMS": "1"} if fp32 else {}))
+
+    def __enter__(self):
+        from rapiddoc_tpu.api import ModelStack
+
+        super().__enter__()
+        ModelStack._instances.clear()
+        return self
+
+    def __exit__(self, *exc):
+        from rapiddoc_tpu.api import ModelStack
+
+        ModelStack._instances.clear()
+        super().__exit__(*exc)
+
+
+def jax_parse(pdf: bytes, fp32: bool) -> dict:
+    from rapiddoc_tpu import RapidDoc
+
+    with jax_env(fp32):
+        out = RapidDoc()(pdf, parse_method="ocr")
+    return plain({"markdown": out.markdown, "middle_json": out.middle_json,
+                  "content_list": out.content_list_json, "model_info": out.model_json})
+
+
+def jax_render(pdf: bytes, dpi: int) -> list[tuple[np.ndarray, list]]:
+    """(page array, image placement boxes) of each page, from the JAX
+    package's render_page_full."""
+    from rapiddoc_tpu.pdfio import open_pdf
+    from rapiddoc_tpu.pdfio.render import render_page_full
+
+    doc = open_pdf(pdf)
+    out = []
+    for i in range(len(doc)):
+        img, _, boxes = render_page_full(doc.get_page(i), dpi=dpi, with_text=False)
+        out.append((np.asarray(img), boxes))
+    return out
+
+
+def sha256(arr: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def pil_jpegs(pdf: bytes) -> list[np.ndarray]:
+    """Each page's JPEG stream as PIL decodes it (the JAX package's
+    xobject_to_pil)."""
+    import io
+
+    from PIL import Image
+
+    from rapiddoc_tpu.pdfio import open_pdf
+
+    doc = open_pdf(pdf)
+    out = []
+    for i in range(len(doc)):
+        stream = doc.resolve(doc.resolve(doc.get_page(i).resources["XObject"])["Im0"])
+        out.append(np.asarray(Image.open(io.BytesIO(stream.raw))))
+    return out
+
+
+def make_golden(pdf: bytes) -> dict:
+    from rapiddoc_tpu.pdfio import classify_pdf
+
+    return {
+        "source": "rapiddoc_tpu RapidDoc()(pdf, parse_method='ocr') on the CPU with "
+                  "RAPIDDOC_DISABLE_LAYOUT/FORMULA/TABLE=1, on ocr_smoke_doc.pdf; "
+                  "rebuilt by tests/test_torch_api.py",
+        "dpi": 200,
+        "classify": classify_pdf(pdf),
+        "jpeg_sha256": [sha256(p) for p in pil_jpegs(pdf)],
+        "page_sha256": [sha256(p) for p, _ in jax_render(pdf, 200)],
+        "fp32": jax_parse(pdf, fp32=True),
+        "bf16": jax_parse(pdf, fp32=False),
+    }
+
+
+def port_parse(pdf: bytes, dtype_name: str) -> dict:
+    import torch
+
+    from rapiddoc_tpu_torch import RapidDoc
+
+    dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
+    with held_env():
+        out = RapidDoc(device="cpu", dtype=dtype)(pdf, parse_method="ocr")
+    return plain({"markdown": out.markdown, "middle_json": out.middle_json,
+                  "content_list": out.content_list_json, "model_info": out.model_json})
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def golden() -> dict:
+    return json.loads(GOLDEN_JSON.read_text())
+
+
+@pytest.fixture(scope="module")
+def pdf() -> bytes:
+    return DOC_PDF.read_bytes()
+
+
+def test_fixture_pdf_matches_committed(pdf):
+    assert make_pdf() == pdf
+
+
+def test_golden_pages_and_classification_match_jax_package(pdf, golden):
+    from rapiddoc_tpu.pdfio import classify_pdf
+
+    assert golden["classify"] == classify_pdf(pdf) == "ocr"
+    assert golden["jpeg_sha256"] == [sha256(p) for p in pil_jpegs(pdf)]
+    assert golden["page_sha256"] == [sha256(p) for p, _ in jax_render(pdf, golden["dpi"])]
+
+
+def test_port_fp32_equals_fp32_golden(pdf, golden):
+    """The port's RapidDoc on the CPU in fp32: the Markdown and the
+    content list exactly, every det's category, box and text exactly;
+    scores within 5e-3 (fp32 summation order, as the OCR system's test
+    holds them)."""
+    got = port_parse(pdf, "fp32")
+    want = golden["fp32"]
+    assert got["markdown"] == want["markdown"]
+    assert got["content_list"] == want["content_list"]
+    for gp, wp in zip(got["model_info"], want["model_info"], strict=True):
+        for g, w in zip(gp["layout_dets"], wp["layout_dets"], strict=True):
+            assert {k: v for k, v in g.items() if k != "score"} == \
+                {k: v for k, v in w.items() if k != "score"}
+            assert abs(g["score"] - w["score"]) <= 5e-3
+
+
+def test_port_bf16_meets_the_card_limits(pdf, golden):
+    """The port's bf16 on the CPU against the JAX package's bf16 golden,
+    held to chip_smoke.py's pipeline limits (measured: 56/74 lines equal,
+    CER 0.0083; ``python tests/test_torch_api.py --compare``)."""
+    smoke = _chip_smoke()
+    vs = smoke.compare_markdown(port_parse(pdf, "bf16")["markdown"], golden["bf16"]["markdown"])
+    assert vs["lines"] == 74
+    assert vs["exact_share"] >= smoke.PIPELINE_BF16_MIN_EXACT
+    assert vs["cer"] <= smoke.PIPELINE_BF16_MAX_CER
+
+
+@pytest.mark.parametrize("stage", ["LAYOUT", "FORMULA", "TABLE"])
+def test_port_raises_for_stages_not_ported(pdf, stage):
+    import torch
+
+    from rapiddoc_tpu_torch import RapidDoc
+
+    with held_env():
+        del os.environ[f"RAPIDDOC_DISABLE_{stage}"]
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+            RapidDoc(device="cpu", dtype=torch.float32)(pdf, parse_method="ocr")
+
+
+@pytest.mark.parametrize("error", [
+    FileNotFoundError("csrc/argmax_head.cuh"),  # ops/build.py: a missing header
+    OSError("ctc_head.so: invalid ELF header"),  # ctypes.CDLL
+    ValueError("C = 300 exceeds the kernel's widest x, 256"),  # the wrapper's checks
+], ids=lambda e: type(e).__name__)
+def test_port_raises_when_the_rec_head_fails(pdf, monkeypatch, error):
+    """A K1 that does not build, load or launch fails the parse: rec has
+    no per-crop retry that would turn it into blank lines."""
+    import torch
+
+    from rapiddoc_tpu_torch import RapidDoc
+    from rapiddoc_tpu_torch.ops import ctc_head
+
+    def broken(*args, **kwargs):
+        raise error
+
+    monkeypatch.setattr(ctc_head, "ctc_argmax_plain", broken)
+    with held_env(), pytest.raises(type(error), match=str(error).split(":")[0]):
+        RapidDoc(device="cpu", dtype=torch.float32)(pdf, parse_method="ocr", end_page_id=0)
+
+
+def test_port_raises_for_inputs_not_ported(tmp_path):
+    from rapiddoc_tpu_torch import RapidDoc
+
+    doc = RapidDoc(device="cpu")
+    with pytest.raises(NotImplementedError, match="image inputs"):
+        doc(np.zeros((8, 8, 3), np.uint8))
+    (tmp_path / "a.docx").write_bytes(b"PK\x03\x04")
+    with pytest.raises(NotImplementedError, match="Office"):
+        doc(tmp_path / "a.docx")
+    with pytest.raises(NotImplementedError, match="URL"):
+        doc("https://example.invalid/a.pdf")
+    with pytest.raises(NotImplementedError, match="data_uri"):
+        RapidDoc(device="cpu", image_output_mode="data_uri")
+
+
+def compare(pdf: bytes) -> dict:
+    """The port's bf16 (and fp32) on the CPU against the goldens, read as
+    chip_smoke.py reads the card's."""
+    smoke = _chip_smoke()
+    golden = json.loads(GOLDEN_JSON.read_text())
+    return {
+        "port_bf16_cpu": smoke.compare_markdown(port_parse(pdf, "bf16")["markdown"],
+                                                golden["bf16"]["markdown"]),
+        "port_fp32_cpu": smoke.compare_markdown(port_parse(pdf, "fp32")["markdown"],
+                                                golden["fp32"]["markdown"]),
+        "jax_fp32_vs_bf16": smoke.compare_markdown(golden["fp32"]["markdown"],
+                                                   golden["bf16"]["markdown"]),
+    }
+
+
+if __name__ == "__main__":
+    # Rewrites the fixture PDF and the golden; with --compare, prints
+    # compare() instead.
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    flags = os.environ.get("XLA_FLAGS", "")
+    os.environ["XLA_FLAGS"] = f"{flags} --xla_force_host_platform_device_count=8".strip()
+    sys.path.insert(0, str(REPO))
+    if "--compare" in sys.argv[1:]:
+        print(json.dumps(compare(DOC_PDF.read_bytes()), indent=1))
+    else:
+        data = make_pdf()
+        DOC_PDF.write_bytes(data)
+        GOLDEN_JSON.write_text(json.dumps(make_golden(data), indent=1) + "\n")
+        print("wrote", DOC_PDF, GOLDEN_JSON)

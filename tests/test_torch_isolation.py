@@ -2,6 +2,7 @@
 no jax, flax, cv2, PIL, and nothing of the JAX package. The card's
 machine is not guaranteed any of those, so this is the CPU-side guard."""
 import ast
+import os
 import subprocess
 import sys
 import textwrap
@@ -36,11 +37,24 @@ def test_no_banned_import_in_the_port_source():
     assert {k: v for k, v in offenders.items() if v} == {}
 
 
+# the modules of the main path's slice, which the list below must hold
+MAIN_PATH_MODULES = (
+    "rapiddoc_tpu_torch.api", "rapiddoc_tpu_torch.bench",
+    "rapiddoc_tpu_torch.pdfio.jpeg", "rapiddoc_tpu_torch.pdfio.images",
+    "rapiddoc_tpu_torch.pdfio.render", "rapiddoc_tpu_torch.pdfio.document",
+    "rapiddoc_tpu_torch.pdfio.classify", "rapiddoc_tpu_torch.pipeline.scheduler",
+    "rapiddoc_tpu_torch.pipeline.middle", "rapiddoc_tpu_torch.pipeline.page_build",
+    "rapiddoc_tpu_torch.pipeline.mkcontent", "rapiddoc_tpu_torch.reading_order.xycut",
+    "rapiddoc_tpu_torch.reading_order.xycut_v3", "rapiddoc_tpu_torch.data.io",
+)
+
+
 def test_port_imports_and_runs_with_banned_modules_blocked():
     modules = [
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in sorted(PORT.rglob("*.py"))
     ]
+    assert set(MAIN_PATH_MODULES) <= set(modules)
     code = textwrap.dedent(f"""
         import sys
         for name in {BANNED!r}:
@@ -56,14 +70,28 @@ def test_port_imports_and_runs_with_banned_modules_blocked():
             page = z["pages"][0][:320, :480]
         out = system([page])
         assert len(out) == 1 and len(out[0]) > 0, out
+        # the main path on the first fixture page: PDF parse, JPEG decode,
+        # render, OCR, assembly
+        import os
+        from rapiddoc_tpu_torch import RapidDoc
+        from rapiddoc_tpu_torch.bench import build_pdf, page_images
+        for k in ("LAYOUT", "FORMULA", "TABLE"):
+            os.environ["RAPIDDOC_DISABLE_" + k] = "1"
+        with open("rapiddoc_tpu_torch/assets/ocr_smoke_doc.pdf", "rb") as f:
+            pdf = build_pdf(page_images(f.read())[:1], 1)
+        md = RapidDoc(device="cpu", dtype=torch.float32)(pdf, parse_method="ocr").markdown
+        assert md.count(chr(10)) > 10, md
         loaded = sorted(k for k in sys.modules if k.split(".")[0] in {BANNED!r}
                         and sys.modules[k] is not None)
         assert not loaded, loaded
         print("ok", len(out[0]))
     """)
+    # other test files set RAPIDDOC_* knobs (such as RAPIDDOC_DISABLE_OCR)
+    # when they are imported; the child runs without any
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("RAPIDDOC_", "MINERU_"))}
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
-        timeout=600,
+        timeout=600, env=env,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("ok")

@@ -1,0 +1,140 @@
+"""The port's page renderer against the JAX package's, and resize_area
+against OpenCV's INTER_AREA.
+
+``render_page_full`` must give the JAX package's page arrays exactly: on
+the fixture PDF at 200 dpi (the 960 px JPEGs enlarged, INTER_LINEAR) and
+at 100 and 72 dpi (shrunk, INTER_AREA), and on hand-written pages whose
+images are raw RGB or grey samples (Flate or not) placed flipped,
+rotated by 90 degrees (or by less than 45, which the JAX package draws
+unrotated), clipped by a rectangle or partly off the page.
+What it does not draw yet must raise NotImplementedError: text that
+shows ink, path painting, a clip that is not a rectangle, an image
+resized to under 16384 pixels, a rotation by 45 degrees or more that is
+not a multiple of 90, an image mask and a decode array.
+"""
+import zlib
+from pathlib import Path
+
+import cv2
+import numpy as np
+import pytest
+
+from rapiddoc_tpu.pdfio import open_pdf as jax_open_pdf
+from rapiddoc_tpu.pdfio.render import render_page_full as jax_render
+from rapiddoc_tpu_torch.models.ocr.pre_post import resize_area
+from rapiddoc_tpu_torch.pdfio import open_pdf, render_page_full
+
+REPO = Path(__file__).resolve().parent.parent
+FIXTURE = REPO / "rapiddoc_tpu_torch" / "assets" / "ocr_smoke_doc.pdf"
+
+
+def image_pdf(content: bytes, img: np.ndarray, flate: bool = True, extra: bytes = b"",
+              media=(0, 0, 400, 300)) -> bytes:
+    """One page drawing ``content`` with the raw-sample image XObject
+    /Im0 (RGB or grey, 8 bits) and the font /F1."""
+    h, w = img.shape[:2]
+    cs = b"/DeviceRGB" if img.ndim == 3 else b"/DeviceGray"
+    data = zlib.compress(img.tobytes()) if flate else img.tobytes()
+    filt = b"/Filter /FlateDecode " if flate else b""
+    objs = {
+        1: b"<< /Type /Catalog /Pages 2 0 R >>",
+        2: b"<< /Type /Pages /Kids [3 0 R] /Count 1 >>",
+        3: b"<< /Type /Page /Parent 2 0 R /MediaBox [%d %d %d %d] " % media
+           + b"/Resources << /XObject << /Im0 5 0 R >> /Font << /F1 6 0 R >> >> /Contents 4 0 R >>",
+        4: b"<< /Length %d >>\nstream\n" % len(content) + content + b"\nendstream",
+        5: b"<< /Type /XObject /Subtype /Image /Width %d /Height %d /ColorSpace " % (w, h)
+           + cs + b" /BitsPerComponent 8 " + filt + extra + b"/Length %d >>\nstream\n" % len(data)
+           + data + b"\nendstream",
+        6: b"<< /Type /Font /Subtype /Type1 /BaseFont /Helvetica >>",
+    }
+    out = bytearray(b"%PDF-1.4\n")
+    offsets = []
+    for num in sorted(objs):
+        offsets.append(len(out))
+        out += b"%d 0 obj\n" % num + objs[num] + b"\nendobj\n"
+    xref = len(out)
+    out += b"xref\n0 7\n0000000000 65535 f \n" + b"".join(b"%010d 00000 n \n" % o for o in offsets)
+    out += b"trailer\n<< /Size 7 /Root 1 0 R >>\nstartxref\n%d\n%%%%EOF\n" % xref
+    return bytes(out)
+
+
+def both(data: bytes, dpi: int, page: int = 0):
+    want, _, jboxes = jax_render(jax_open_pdf(data).get_page(page), dpi=dpi, with_text=False)
+    got, text, boxes = render_page_full(open_pdf(data).get_page(page), dpi=dpi, with_text=False)
+    return got, np.asarray(want), boxes, jboxes, text
+
+
+@pytest.mark.parametrize("dpi", [200, 100, 72])
+@pytest.mark.parametrize("page", [0, 1, 2])
+def test_fixture_pages_equal_jax(dpi, page):
+    got, want, boxes, jboxes, text = both(FIXTURE.read_bytes(), dpi, page)
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    assert np.array_equal(got, want)
+    assert boxes == jboxes and text is None
+
+
+RNG = np.random.default_rng(5)
+RGB = RNG.integers(0, 256, (150, 200, 3), dtype=np.uint8)
+GREY = RNG.integers(0, 256, (300, 240), dtype=np.uint8)
+PLACED = {
+    # name: (content, image, flate)
+    "rgb_enlarged": (b"q 300 0 0 200 40 50 cm /Im0 Do Q", RGB, True),
+    "grey_shrunk_raw": (b"q 150 0 0 200 10 10 cm /Im0 Do Q", GREY, False),
+    "flipped_x": (b"q -300 0 0 200 340 50 cm /Im0 Do Q", RGB, True),
+    "flipped_y": (b"q 300 0 0 -200 40 250 cm /Im0 Do Q", RGB, True),
+    "rotated_90": (b"q 0 200 -150 0 300 40 cm /Im0 Do Q", RGB, True),
+    "rotated_270": (b"q 0 -200 150 0 100 260 cm /Im0 Do Q", GREY, True),
+    "rect_clip": (b"q 50 60 200 150 re W n 300 0 0 200 40 50 cm /Im0 Do Q", RGB, True),
+    "off_page": (b"q 300 0 0 250 -100 120 cm /Im0 Do Q", RGB, True),
+    "two_images": (b"q 200 0 0 150 10 10 cm /Im0 Do Q q 180 0 0 140 210 150 cm /Im0 Do Q",
+                   RGB, True),
+    # under 45 degrees the JAX package draws into the bounding box unrotated
+    "skewed_30": (b"q 173.2 100 -100 173.2 200 20 cm /Im0 Do Q", RGB, True),
+}
+
+
+@pytest.mark.parametrize("name", list(PLACED))
+@pytest.mark.parametrize("dpi", [200, 72])
+def test_placed_images_equal_jax(name, dpi):
+    content, img, flate = PLACED[name]
+    got, want, boxes, jboxes, _ = both(image_pdf(content, img, flate), dpi)
+    assert np.array_equal(got, want)
+    assert boxes == jboxes
+
+
+UNSUPPORTED = {
+    "text": (b"BT /F1 24 Tf 50 150 Td (Hello) Tj ET", {}),
+    "path_fill": (b"0 0 1 rg 10 10 100 50 re f", {}),
+    "path_stroke": (b"2 w 10 10 m 200 200 l S", {}),
+    "clip_not_rect": (b"q 10 10 m 200 20 l 100 250 l h W n 300 0 0 200 40 50 cm /Im0 Do Q", {}),
+    "small_resize": (b"q 40 0 0 30 10 10 cm /Im0 Do Q", {}),
+    "rotated_60": (b"q 100 173.2 -173.2 100 250 20 cm /Im0 Do Q", {}),
+    "image_mask": (b"q 300 0 0 200 40 50 cm /Im0 Do Q", {"extra": b"/ImageMask true "}),
+    "decode_array": (b"q 300 0 0 200 40 50 cm /Im0 Do Q", {"extra": b"/Decode [1 0 1 0 1 0] "}),
+}
+
+
+@pytest.mark.parametrize("name", list(UNSUPPORTED))
+def test_content_not_ported_raises(name):
+    content, kw = UNSUPPORTED[name]
+    page = open_pdf(image_pdf(content, RGB, **kw)).get_page(0)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+        render_page_full(page, dpi=200, with_text=False)
+
+
+def test_invisible_and_blank_text_draws_nothing_as_in_jax():
+    content = b"BT 3 Tr /F1 24 Tf 50 150 Td (Hidden) Tj ET BT /F1 24 Tf 50 100 Td ( ) Tj ET " \
+              b"q 300 0 0 200 40 50 cm /Im0 Do Q"
+    got, want, _, _, _ = both(image_pdf(content, RGB), 100)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("size,out", [((960, 960), (667, 667)), ((960, 960), (480, 480)),
+                                      ((301, 200), (100, 67)), ((90, 120), (30, 40)),
+                                      ((51, 49), (50, 48)), ((1333, 800), (999, 250))])
+def test_resize_area_equals_cv2(size, out, channels):
+    rng = np.random.default_rng(size[0] * channels + out[0])
+    img = rng.integers(0, 256, size + ((3,) if channels == 3 else ()), dtype=np.uint8)
+    want = cv2.resize(img, (out[1], out[0]), interpolation=cv2.INTER_AREA)
+    assert np.array_equal(resize_area(img, out[1], out[0]), want)
