@@ -52,6 +52,24 @@ per shape or run):
           seed), bf16, length bucket 256, with the int8 head through K2
           and again through its plain version: the token streams must
           be equal
+  layout  the demo RT-DETR layout detector on the layout fixture's four
+          rendered pages (their sha256 the golden's): fp32 (TF32 off)
+          dets equal to the JAX package's golden (labels and order,
+          boxes within 0.05 px), bf16 dets within limits of the bf16
+          golden; ms/page at batches 1, 2, 4 and 8; the published shape
+          (B4, 800x800, 300 queries, 6 decoder layers, masks, random
+          weights from a seed) at batch 8: pages/s and the device's busy
+          share
+  pipeline_layout  RapidDoc(device="cuda")(pdf, parse_method="ocr") on
+          the layout fixture with RAPIDDOC_DEMO_LAYOUT=1
+          RAPIDDOC_DISABLE_TABLE=1 (layout, OCR with K1, formula regions
+          through the demo recognizer, missed-text recovery, span images
+          JPEG-encoded): fp32 Markdown, content list, LaTeX and payload
+          sha256 equal to the golden's with the int8 head off, on, and
+          on with one page per window (DeferredAR); the bf16 main path
+          with the int8 head on (timed, K1's launches held to the rec
+          dispatches and K2's to the decode steps) within limits of the
+          bf16 golden; pages/s, stage ms/page and the device's busy share
 Then a timing line (seconds by phase), a ``{"kernels": [...]}`` line,
 the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
@@ -121,6 +139,29 @@ FORMULA_BF16_MIN_EQUAL, FORMULA_BF16_MAX_TER = 5, 0.15
 # memory, and the first decode step's logits with the plain head.
 FORMULA_GAPS = {"memory": "memory_bf16_rel_err",
                 "first_step_logits": "first_step_logits_bf16_rel_err"}
+# The layout path (tests/test_torch_pipeline_layout.py holds the
+# generator of its fixture and golden). The bf16 detector against the
+# JAX package's bf16 dets: the port's bf16 on the CPU matches 56/56
+# golden dets with the same label at IoU >= 0.9, and the JAX package's
+# own fp32 dets match 52/56 of its bf16 ones (python
+# tests/test_torch_pipeline_layout.py --compare); the margin is 5 dets.
+LAYOUT_BF16_MIN_MATCHED = 0.90
+LAYOUT_BOX_TOL = 0.05  # px, fp32 dets against the fp32 golden
+LAYOUT_BATCHES = (1, 2, 4, 8)
+LAYOUT_TIMED_RUNS = 2  # per batch size; the published shape is timed once
+# The bf16 parse of the layout fixture against the JAX package's bf16
+# golden (int8 head on). The demo formula recognizer flips most LaTeX
+# strings under any change of rounding (the JAX package's own fp32 and
+# bf16 agree on 2 of 18), and a box that moves a pixel changes its span
+# image's digest name, so these limits are on lines, characters and
+# counts. The port's bf16 on the CPU with the int8 head: 136/169 lines
+# equal (0.805), CER 0.214, LaTeX CER 0.499, 18/18 formulas and 17/17
+# images; the JAX package's fp32 against its bf16: 0.769, 0.197, LaTeX
+# CER 0.626 (python tests/test_torch_pipeline_layout.py --compare). The
+# margins: 0.105 of lines, 0.106 of CER, 0.151 of LaTeX CER, 2 formulas
+# or images.
+LAYOUT_PARSE_BF16 = {"min_exact_share": 0.70, "max_cer": 0.32, "max_latex_cer": 0.65,
+                     "max_count_gap": 2}
 DET_MEAN = (0.485, 0.456, 0.406)
 DET_STD = (0.229, 0.224, 0.225)
 
@@ -986,6 +1027,256 @@ def phase_pipeline(golden: dict, card: str) -> int:
     return launches
 
 
+def layout_rows(dets: list[dict]) -> list[dict]:
+    """(label, score, box) of a layout detector's dets."""
+    return [{"label": d["original_label"], "score": float(d["score"]),
+             "box": [float(d["poly"][i]) for i in (0, 1, 4, 5)]} for d in dets]
+
+
+def box_iou(a, b) -> float:
+    ix = max(0.0, min(a[2], b[2]) - max(a[0], b[0]))
+    iy = max(0.0, min(a[3], b[3]) - max(a[1], b[1]))
+    inter = ix * iy
+    union = (a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - inter
+    return inter / union if union > 0 else 0.0
+
+
+def compare_layout_dets(got: list, want: list) -> dict:
+    """Each golden det matched to the port's best-IoU det of the same
+    label on its page; how many reach IoU >= 0.9, and on how many pages
+    the label sequence is the golden's."""
+    dets = matched = same_order = 0
+    for gp, wp in zip(got, want):
+        same_order += [g["label"] for g in gp] == [w["label"] for w in wp]
+        for w in wp:
+            dets += 1
+            best = max((box_iou(g["box"], w["box"]) for g in gp if g["label"] == w["label"]),
+                       default=0.0)
+            matched += best >= 0.9
+    return {"dets": dets, "got_dets": sum(len(p) for p in got), "matched_iou_0.9": matched,
+            "matched_share": matched / max(dets, 1), "pages_same_labels": same_order}
+
+
+def check_layout_fp32(got: list, want: list) -> float:
+    """fp32 dets equal to the golden's: labels and order, boxes within
+    LAYOUT_BOX_TOL. Returns the largest box difference."""
+    worst = 0.0
+    for i, (gp, wp) in enumerate(zip(got, want, strict=True)):
+        check([g["label"] for g in gp] == [w["label"] for w in wp],
+              f"layout fp32 page {i}: labels {[g['label'] for g in gp]} != golden's")
+        for g, w in zip(gp, wp):
+            worst = max(worst, max(abs(a - b) for a, b in zip(g["box"], w["box"])))
+    check(worst <= LAYOUT_BOX_TOL, f"layout fp32: a box is {worst:.4f} px off the golden's")
+    return worst
+
+
+def parse_summary(out) -> dict:
+    """The golden's reading of a parse: Markdown, content list, each
+    page's LaTeX, and every payload's sha256 by name."""
+    import hashlib
+
+    return {
+        "markdown": out.markdown, "content_list": out.content_list_json,
+        "latex": [[d["latex"] for d in page["layout_dets"] if "latex" in d]
+                  for page in out.model_json],
+        "images": {k: hashlib.sha256(v).hexdigest() for k, v in sorted(out.images.items())},
+    }
+
+
+def compare_layout_parse(got: dict, want: dict) -> dict:
+    """A parse summary against the golden's: Markdown lines and CER,
+    LaTeX equal and its CER over the formulas in order, and the counts of
+    formulas and images."""
+    gl = [x for page in got["latex"] for x in page]
+    wl = [x for page in want["latex"] for x in page]
+    edits = sum(_edits(a, b) for a, b in zip(gl, wl)) + sum(len(x) for x in wl[len(gl):])
+    return {"markdown": compare_markdown(got["markdown"], want["markdown"]),
+            "formulas": len(gl), "golden_formulas": len(wl),
+            "latex_equal": sum(a == b for a, b in zip(gl, wl)),
+            "latex_cer": edits / max(sum(len(x) for x in wl), 1),
+            "images": len(got["images"]), "golden_images": len(want["images"]),
+            "image_names_equal": len(set(got["images"]) & set(want["images"]))}
+
+
+def check_layout_parse_bf16(vs: dict) -> None:
+    lim = LAYOUT_PARSE_BF16
+    md = vs["markdown"]
+    check(md["exact_share"] >= lim["min_exact_share"],
+          f"pipeline_layout bf16: only {md['exact_share']:.3f} of lines equal")
+    check(md["cer"] <= lim["max_cer"], f"pipeline_layout bf16: CER {md['cer']:.4f}")
+    check(vs["latex_cer"] <= lim["max_latex_cer"],
+          f"pipeline_layout bf16: LaTeX CER {vs['latex_cer']:.4f}")
+    check(abs(vs["formulas"] - vs["golden_formulas"]) <= lim["max_count_gap"],
+          f"pipeline_layout bf16: {vs['formulas']} formulas, golden {vs['golden_formulas']}")
+    check(abs(vs["images"] - vs["golden_images"]) <= lim["max_count_gap"],
+          f"pipeline_layout bf16: {vs['images']} images, golden {vs['golden_images']}")
+
+
+def layout_golden() -> dict:
+    return json.loads((ROOT / "rapiddoc_tpu_torch" / "assets"
+                       / "layout_smoke_golden.json").read_text())
+
+
+def layout_pdf() -> bytes:
+    return (ROOT / "rapiddoc_tpu_torch" / "assets" / "layout_smoke_doc.pdf").read_bytes()
+
+
+def phase_layout(golden: dict, card: str) -> None:
+    """The demo layout detector on the card, and the published shape."""
+    import numpy as np
+    import torch
+
+    from rapiddoc_tpu_torch.bench import device_busy_share
+    from rapiddoc_tpu_torch.models.layout.engine import LayoutConfig, LayoutDetector
+    from rapiddoc_tpu_torch.pdfio import open_pdf, render_page_full
+
+    doc = open_pdf(layout_pdf())
+    pages = [render_page_full(doc.get_page(i), dpi=golden["dpi"], with_text=False)[0]
+             for i in range(len(doc))]
+    check([sha256(p) for p in pages] == golden["page_sha256"],
+          "layout: the rendered fixture pages differ from the JAX package's")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fp32 = LayoutDetector.build({"demo_layout": True}, dtype=torch.float32)
+    worst = check_layout_fp32([layout_rows(d) for d in fp32.batch_predict(pages)],
+                              golden["fp32"]["layout"])
+    det = LayoutDetector.build({"demo_layout": True})  # the card, bf16
+    bf16 = compare_layout_dets([layout_rows(d) for d in det.batch_predict(pages)],
+                               golden["bf16"]["layout"])
+    check(bf16["matched_share"] >= LAYOUT_BF16_MIN_MATCHED,
+          f"layout bf16: only {bf16['matched_iou_0.9']}/{bf16['dets']} golden dets matched")
+    batches = {}
+    for b in LAYOUT_BATCHES:
+        imgs = (pages * 2)[:b]
+        x = det.preprocess(imgs)
+        det.batch_predict(imgs)  # warm-up: cuDNN picks its algorithms
+        torch.cuda.synchronize()
+        batches[b] = {
+            "ms_per_page": host_ms(lambda: (det.batch_predict(imgs), torch.cuda.synchronize()),
+                                   LAYOUT_TIMED_RUNS) / b,
+            "forward_ms_per_page": cuda_ms(lambda: det.session.dispatch(x), iters=5,
+                                           warmup=1) / b,
+            "preprocess_ms_per_page": host_ms(lambda: det.preprocess(imgs), 2) / b,
+        }
+    # the published PP-DocLayoutV3 shape, random weights from seed 0
+    pub = LayoutDetector(None, LayoutConfig(), seed=0)
+    imgs = (pages * 2)[:8]
+    pub.batch_predict(imgs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pub_out = pub.batch_predict(imgs)
+    torch.cuda.synchronize()
+    pub_s = time.perf_counter() - t0
+    kernel_ms, traced_ms = device_busy_share(lambda: pub.batch_predict(imgs))
+    x = pub.preprocess(imgs)
+    outs = pub.session(x)
+    check(outs["masks_bits"].shape == (8, 300, 100, 13), f"published masks {outs['masks_bits'].shape}")
+    check(all(np.isfinite(outs[k]).all() for k in ("scores", "boxes")), "published: non-finite output")
+    # the span payloads of the fp32 golden's image, table and formula
+    # regions, JPEG-encoded on the host
+    from rapiddoc_tpu_torch.types import CategoryId
+    from rapiddoc_tpu_torch.utils.images import crop_bbox, encode_image
+
+    spans = [crop_bbox(pages[i], [d["poly"][0], d["poly"][1], d["poly"][4], d["poly"][5]], 1.0)
+             for i, info in enumerate(golden["fp32"]["model_info"]) for d in info["layout_dets"]
+             if d["category_id"] in (CategoryId.ImageBody, CategoryId.TableBody,
+                                     CategoryId.InterlineEquation_YOLO)]
+    encode_ms = [host_ms(lambda c=c: encode_image(c), 2) for c in spans]
+    emit({"phase": "layout", "card": card, "pages": len(pages),
+          "jpeg_encode": {"spans": len(spans), "mean_ms": sum(encode_ms) / len(spans),
+                          "max_ms": max(encode_ms),
+                          "mean_pixels": sum(c.shape[0] * c.shape[1] for c in spans) / len(spans)},
+          "fp32_dets_equal": True, "fp32_max_box_diff_px": worst,
+          "bf16_vs_golden_bf16": bf16, "demo_batches": batches,
+          "published": {"shape": "B4 800x800 300q 6 layers masks", "batch": 8,
+                        "pages_per_s": 8 / pub_s, "ms_per_page": pub_s * 1e3 / 8,
+                        "forward_ms_per_page": cuda_ms(lambda: pub.session.dispatch(x), iters=3,
+                                                       warmup=1) / 8,
+                        "device_busy_share": kernel_ms / traced_ms,
+                        "dets_per_page": [len(d) for d in pub_out]}})
+
+
+def _layout_env(int8: bool, window: int | None = None) -> None:
+    import os
+
+    for k in ("LAYOUT", "FORMULA"):
+        os.environ.pop(f"RAPIDDOC_DISABLE_{k}", None)
+    os.environ["RAPIDDOC_DISABLE_TABLE"] = "1"
+    os.environ["RAPIDDOC_DEMO_LAYOUT"] = "1"
+    os.environ.pop("RAPIDDOC_INT8_HEAD", None)
+    if int8:
+        os.environ["RAPIDDOC_INT8_HEAD"] = "1"
+    os.environ.pop("RAPIDDOC_PROCESSING_WINDOW_SIZE", None)
+    if window is not None:
+        os.environ["RAPIDDOC_PROCESSING_WINDOW_SIZE"] = str(window)
+
+
+def phase_pipeline_layout(golden: dict, card: str) -> dict:
+    """The layout path through RapidDoc on the card; returns the main
+    path's counts (K1, K2 launches; rec dispatches; decode steps)."""
+    import torch
+
+    from rapiddoc_tpu_torch import RapidDoc
+    from rapiddoc_tpu_torch.bench import STAGES, device_busy_share
+    from rapiddoc_tpu_torch.ops.ctc_head import fused_ctc_argmax
+    from rapiddoc_tpu_torch.ops.quant_head import fused_argmax_int8
+    from rapiddoc_tpu_torch.utils.trace import GLOBAL_TRACER
+
+    pdf = layout_pdf()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for mode, int8, window in (("fp32", False, None), ("fp32_int8", True, None),
+                               ("fp32_int8", True, 1)):
+        _layout_env(int8, window)
+        got = parse_summary(RapidDoc(device="cuda", dtype=torch.float32)(pdf, parse_method="ocr"))
+        want = golden[mode]
+        equal = {k: got[k] == want[k] for k in ("markdown", "content_list", "latex", "images")}
+        emit({"phase": "pipeline_layout", "dtype": "fp32", "int8_head": int8,
+              "window": window, "equal_to_golden": equal,
+              "vs_golden": compare_layout_parse(got, want)})
+        for key, ok in equal.items():
+            check(ok, f"pipeline_layout {mode} window {window}: the {key} differs from the golden's")
+
+    _layout_env(True)  # the main path: bf16, int8 head on
+    rapid = RapidDoc(device="cuda")
+    rapid(pdf, parse_method="ocr")  # warm-up: cuDNN picks its algorithms
+    torch.cuda.synchronize()
+    analyzer = rapid._stack().analyzer
+    rec, formula = analyzer.ocr.recognizer.session.stats, analyzer.formula_model.stats
+    GLOBAL_TRACER.reset()
+    calls, steps = rec.calls, formula.decode_steps
+    fused_ctc_argmax.launches = 0
+    fused_argmax_int8.launches = 0
+    t0 = time.perf_counter()
+    out = rapid(pdf, parse_method="ocr")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"ctc_head": fused_ctc_argmax.launches, "quant_head": fused_argmax_int8.launches,
+              "rec_dispatches": rec.calls - calls, "decode_steps": formula.decode_steps - steps}
+    report = GLOBAL_TRACER.report()
+    pages = len(out.model_json)
+    kernel_ms, traced_ms = device_busy_share(lambda: rapid(pdf, parse_method="ocr"))
+    vs = compare_layout_parse(parse_summary(out), golden["bf16_int8"])
+    emit({"phase": "pipeline_layout", "dtype": "bf16", "int8_head": True, "card": card,
+          "pages": pages, "pages_per_s": pages / wall,
+          "stage_ms_per_page": {k: report[k]["total_s"] * 1e3 / pages
+                                for k in STAGES if k in report},
+          "formula_regions": report.get("formula", {}).get("items", 0),
+          "device_busy_share": kernel_ms / traced_ms,
+          "device_kernel_ms_per_page": kernel_ms / pages,
+          "launches": counts, "vs_golden_bf16_int8": vs})
+    check(counts["ctc_head"] > 0, "pipeline_layout launched the ctc_head kernel no time")
+    check(counts["ctc_head"] == counts["rec_dispatches"],
+          f"pipeline_layout: {counts['ctc_head']} K1 launches for {counts['rec_dispatches']} "
+          f"rec dispatches")
+    check(counts["quant_head"] > 0, "pipeline_layout launched the quant_head kernel no time")
+    check(counts["quant_head"] == counts["decode_steps"],
+          f"pipeline_layout: {counts['quant_head']} K2 launches for {counts['decode_steps']} "
+          f"decode steps")
+    check_layout_parse_bf16(vs)
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1020,6 +1311,9 @@ def main() -> int:
         k2_all = timed("quant_head", phase_quant_head)
         k2_launches = timed("formula", phase_formula)
         timed("formula_published", phase_formula_published)
+        lgolden = layout_golden()
+        timed("layout", phase_layout, lgolden, card)
+        counts = timed("pipeline_layout", phase_pipeline_layout, lgolden, card)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1038,9 +1332,11 @@ def main() -> int:
         "name": "ctc_head", "route": "cuda",
         "source": "rapiddoc_tpu_torch/csrc/ctc_head.cu",
         "replaces": "rapiddoc_tpu/ops/ctc_head.py:30",
-        # launches: the pipeline's bf16 run (the main path), beside the
-        # OCR system's timed runs
-        "launches": launches, "launches_by_path": {"pipeline": launches, "ocr": ocr_launches},
+        # launches: the layout pipeline's bf16 run (this slice's main
+        # path), beside the earlier paths' runs
+        "launches": counts["ctc_head"],
+        "launches_by_path": {"pipeline_layout": counts["ctc_head"], "pipeline": launches,
+                             "ocr": ocr_launches},
         "max_abs_err": k1["max_abs_err"],
         "max_rel_err": k1["max_rel_err"], "matches_plain": True,
         "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
@@ -1048,12 +1344,15 @@ def main() -> int:
         "library_ms": k1["library_ms"], "shape": [k1["n"], k1["c"], k1["v"]],
         "shapes": shapes(k1_all),
     }, {
-        # launches: the demo recognizer's bf16 int8-head run; times at the
+        # launches: the layout pipeline's bf16 int8-head run (this
+        # slice's main path), beside the formula phase's; times at the
         # published width, L2 flushed before each launch
         "name": "quant_head", "route": "cuda",
         "source": "rapiddoc_tpu_torch/csrc/quant_head.cu",
         "replaces": "rapiddoc_tpu/ops/quant_head.py:50",
-        "launches": k2_launches, "max_abs_err": k2["max_abs_err"],
+        "launches": counts["quant_head"],
+        "launches_by_path": {"pipeline_layout": counts["quant_head"], "formula": k2_launches},
+        "max_abs_err": k2["max_abs_err"],
         "max_rel_err": k2["max_rel_err"], "matches_plain": True,
         "ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],

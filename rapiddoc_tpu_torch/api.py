@@ -1,29 +1,32 @@
 """RapidDoc facade of the port: the public parse API for PDF bytes.
 
 Port of ``rapiddoc_tpu/api.py`` (``RapidDoc.__call__``, ``_parse_single``,
-``_parse_pipeline``, ``ModelStack``, ``RapidDocOutput``) for the path the
-port runs so far: PDF documents in ``parse_method="ocr"`` (or "txt" /
-"auto") with layout, formula and table disabled
-(``RAPIDDOC_DISABLE_LAYOUT/FORMULA/TABLE=1``). The window loop, its
-render-ahead and assembly threads and the outputs are the JAX package's;
-the port adds its ``device`` (the card by default) and ``dtype`` (bf16 by
-default) arguments. Windows render serially (the JAX package's process
-pool renders the same pages).
+``_parse_pipeline``, ``ModelStack``, ``RapidDocOutput``,
+``_embed_data_uris``) for the path the port runs so far: PDF documents
+in ``parse_method="ocr"`` (or "txt" / "auto") with the layout model (the
+demo checkpoint under ``RAPIDDOC_DEMO_LAYOUT=1``, else the fallback
+layout), OCR and the formula recognizer, and the table stage disabled
+(``RAPIDDOC_DISABLE_TABLE=1``). The window loop, its render-ahead and
+assembly threads, the ``DeferredAR`` packing of formula regions across
+windows (when there is more than one window and no checkpoint dir: the
+windows that wait for a flush are assembled after it, in order) and the
+outputs are the JAX package's; the port adds its ``device`` (the card by
+default) and ``dtype`` (bf16 by default) arguments. Windows render
+serially (the JAX package's process pool renders the same pages).
 
-Image, Office, URL and sniffed inputs, batched parsing across documents,
-``extract_original_image`` and ``image_output_mode="data_uri"`` raise
-NotImplementedError naming their ROADMAP items. Without formula and
-table no work is deferred across windows, so the JAX package's
-``DeferredAR`` gating of the assembly is not here: each window is
-assembled as soon as it is analysed. A page whose page object is broken renders as a blank
+Image, Office, URL and sniffed inputs, batched parsing across documents
+and ``extract_original_image`` raise NotImplementedError naming their
+ROADMAP items. A page whose page object is broken renders as a blank
 page, as in the JAX package; anything the port's renderer cannot draw
 raises.
 """
 from __future__ import annotations
 
+import base64
 import json
 import math
 import os
+import re
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -43,6 +46,7 @@ from .config import (
 from .data.io import DataWriter, FanoutDataWriter, FileBasedDataWriter, MemoryDataWriter
 from .pipeline.middle import build_page_infos, finalize_middle_json
 from .pipeline.mkcontent import union_make
+from .pipeline.scheduler import DeferredAR
 from .types import MakeMode
 from .utils.checkpoint import resolve_checkpoint
 from .utils.logging import get_logger
@@ -155,9 +159,6 @@ class RapidDoc:
         self.image_dir_name = image_dir_name or "images"
         if image_output_mode not in ("url", "data_uri"):
             raise ValueError("image_output_mode must be 'url' or 'data_uri'")
-        if image_output_mode == "data_uri":
-            # it embeds span images, whose payloads the port cannot make yet
-            raise not_ported("image_output_mode='data_uri'", "span_jpeg")
         self.image_output_mode = image_output_mode
         self.pdf_pages_batch = (
             pdf_pages_batch if pdf_pages_batch is not None
@@ -305,7 +306,13 @@ class RapidDoc:
                     page_idx_offset=start, image_config=self.image_config,
                 )
 
+        # doc-wide AR packing: formula regions accumulate across windows
+        # and decode in full buckets instead of per-window dribbles.
+        # Checkpointed runs keep per-window decoding so saved windows
+        # stay self-contained.
+        deferred = DeferredAR() if (ckpt is None and len(starts) > 1) else None
         asm_futures = []
+        pending_asm: list[tuple] = []  # windows awaiting an AR flush
 
         # three-stage window pipeline: render window N+1 on a prefetch
         # thread AND assemble window N-1 on an assembly thread while the
@@ -313,6 +320,12 @@ class RapidDoc:
         with ThreadPoolExecutor(max_workers=1) as pool, ThreadPoolExecutor(
             max_workers=1
         ) as asm_pool:
+
+            def submit_pending():
+                for args in pending_asm:
+                    asm_futures.append(asm_pool.submit(assemble_window, *args))
+                pending_asm.clear()
+
             future = pool.submit(render_window, starts[0]) if starts else None
             for wi, start in enumerate(starts):
                 w_imgs, w_text, w_boxes, dims = future.result()
@@ -322,16 +335,31 @@ class RapidDoc:
                 if infos is None:
                     infos = stack.analyzer.analyze_pages(
                         w_imgs, [parse_method] * len(w_imgs), w_text, w_boxes,
-                        [scale] * len(w_imgs),
+                        [scale] * len(w_imgs), deferred=deferred,
                     )
                     if ckpt is not None:
                         ckpt.save(start, infos)
                 else:
                     logger.info("window %d resumed from checkpoint", start)
-                asm_futures.append(
-                    asm_pool.submit(assemble_window, start, infos, dims, w_imgs, w_text)
-                )
+                args = (start, infos, dims, w_imgs, w_text)
+                if deferred is not None and deferred.window_added() > 0:
+                    pending_asm.append(args)
+                elif pending_asm:
+                    # keep window order: ride behind the pending flush
+                    pending_asm.append(args)
+                else:
+                    asm_futures.append(asm_pool.submit(assemble_window, *args))
+                # flush when a full decode bucket accumulated, or when
+                # deferral has stalled assembly for >= 3 windows
+                if deferred is not None and pending_asm and (
+                    deferred.should_flush() or len(pending_asm) >= 3
+                ):
+                    stack.analyzer.flush_deferred(deferred)
+                    submit_pending()
                 all_model_infos.extend(infos)
+            if deferred is not None:
+                stack.analyzer.flush_deferred(deferred)
+            submit_pending()
             page_infos = [p for f in asm_futures for p in f.result()]
 
         with stage_timer("assembly_final", n_pages):
@@ -345,6 +373,8 @@ class RapidDoc:
         images = {
             f"{self.image_dir_name}/{k}": v for k, v in mem_writer.data.items()
         }
+        if self.image_output_mode == "data_uri":
+            markdown = self._embed_data_uris(markdown, images)
 
         if out_dir:
             md_writer = FileBasedDataWriter(str(Path(out_dir) / name))
@@ -374,6 +404,40 @@ class RapidDoc:
             model_json=all_model_infos,
             stage_report=report,
         )
+
+    @staticmethod
+    def _image_mime(data: bytes) -> str:
+        """MIME type from magic bytes."""
+        if data[:8] == b"\x89PNG\r\n\x1a\n":
+            return "image/png"
+        if data[:6] in (b"GIF87a", b"GIF89a"):
+            return "image/gif"
+        if data[:2] == b"BM":
+            return "image/bmp"
+        if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+            return "image/webp"
+        if data[:5] in (b"<?xml", b"<svg ") or data[:4] == b"<svg":
+            return "image/svg+xml"
+        return "image/jpeg"
+
+    @staticmethod
+    def _embed_data_uris(markdown: str, images: dict[str, bytes]) -> str:
+        def repl(m: re.Match) -> str:
+            data = images.get(m.group(1))
+            if data is None:
+                return m.group(0)
+            b64 = base64.b64encode(data).decode()
+            return f"![](data:{RapidDoc._image_mime(data)};base64,{b64})"
+
+        def repl_html(m: re.Match) -> str:
+            data = images.get(m.group(1))
+            if data is None:
+                return m.group(0)
+            b64 = base64.b64encode(data).decode()
+            return f'<img src="data:{RapidDoc._image_mime(data)};base64,{b64}"/>'
+
+        markdown = re.sub(r"!\[\]\(([^)]+)\)", repl, markdown)
+        return re.sub(r'<img src="([^"]+)"/>', repl_html, markdown)
 
     # --------------------------------------------------------------- input
 

@@ -1,24 +1,39 @@
 """GPU bench of the port's main path: ``RapidDoc()(pdf, parse_method="ocr")``.
 
-    python3 -m rapiddoc_tpu_torch.bench [--pages 56] [--dtype bf16] [--device cuda]
+    python3 -m rapiddoc_tpu_torch.bench [--corpus ocr|layout] [--pages 56]
+        [--dtype bf16] [--device cuda] [--int8-head]
 
-The counterpart of ``bench.py``'s ``_bench_e2e`` in its OCR-only form
-(layout, formula and table disabled, ``RAPIDDOC_DISABLE_*=1``): an
-N-page PDF (56 by default, as ``bench.py``) of synthetic text pages
-embedded as JPEG at quality 92, 144 dpi. The pages repeat the committed
-fixture PDF's three JPEG streams (``assets/ocr_smoke_doc.pdf``, written
-by the JAX package's ``images_to_pdf``), each page with the page dict
-and content stream ``images_to_pdf`` writes. One warm-up pass, two timed
-passes, then one pass under ``torch.profiler`` for the device's busy
-share (kernel time over wall time; not counted in pages/s).
+``--corpus ocr`` (the default) is ``bench.py``'s ``_bench_e2e`` in its
+OCR-only form (layout, formula and table disabled,
+``RAPIDDOC_DISABLE_*=1``): an N-page PDF (56 by default, as
+``bench.py``) of synthetic text pages embedded as JPEG at quality 92,
+144 dpi, repeating the committed fixture PDF's three JPEG streams
+(``assets/ocr_smoke_doc.pdf``, written by the JAX package's
+``images_to_pdf``), each page with the page dict and content stream
+``images_to_pdf`` writes.
 
-Prints the card's name and power limit, then one JSON line with
-``bench.py``'s keys: ``pages_per_sec`` (and each run's), ``stage_ms_per_page``
-(render, ocr_det, ocr_crop, ocr_rec, assembly, assembly_final, and ocr,
-which holds det, crop and rec), ``ocr_rec_detail`` (crops, session
-calls, crops/s, K1 launches) and ``device_busy_share``. On the CPU
-(``--device cpu``) it runs the same path for rehearsal and reports no
-device numbers.
+``--corpus layout`` is the counterpart of ``bench.py``'s
+``_composite_corpus_pdf`` for the page kinds this repository holds, with
+``RAPIDDOC_DEMO_LAYOUT=1 RAPIDDOC_DISABLE_TABLE=1``: in equal thirds, in
+this order, the formula_dense and the table_heavy pages of
+``assets/layout_smoke_doc.pdf`` and the synth-text pages of
+``ocr_smoke_doc.pdf``, each kind's streams repeated. The layout model,
+OCR and the formula recognizer run; unlike the JAX bench's headline the
+table stage is disabled (it is not ported), and the JAX headline's real
+English and CJK pages are not in the repository. ``--int8-head`` sets
+``RAPIDDOC_INT8_HEAD=1``, which sends every formula decode step through
+kernel K2.
+
+One warm-up pass, two timed passes, then one pass under
+``torch.profiler`` for the device's busy share (kernel time over wall
+time; not counted in pages/s). Prints the card's name and power limit,
+then one JSON line with ``bench.py``'s keys: ``pages_per_sec`` (and each
+run's), ``stage_ms_per_page`` (render, layout, ocr_det, ocr_crop,
+ocr_rec, formula, assembly, assembly_final, and ocr, which holds det,
+crop and rec), ``ocr_rec_detail`` (crops, session calls, crops/s, K1
+launches), ``formula_detail`` (regions, decode dispatches and steps, K2
+launches) and ``device_busy_share``. On the CPU (``--device cpu``) it
+runs the same path for rehearsal and reports no device numbers.
 """
 from __future__ import annotations
 
@@ -31,8 +46,13 @@ from pathlib import Path
 
 import torch
 
-PDF = Path(__file__).resolve().parent / "assets" / "ocr_smoke_doc.pdf"
-STAGES = ("render", "ocr_det", "ocr_crop", "ocr_rec", "ocr", "assembly", "assembly_final")
+ASSETS = Path(__file__).resolve().parent / "assets"
+PDF = ASSETS / "ocr_smoke_doc.pdf"
+LAYOUT_PDF = ASSETS / "layout_smoke_doc.pdf"
+STAGES = ("render", "layout", "ocr_det", "ocr_crop", "ocr_rec", "ocr", "formula",
+          "assembly", "assembly_final")
+# layout_smoke_doc.pdf's pages by kind (tests/test_torch_pipeline_layout.py)
+LAYOUT_KINDS = {"formula_dense": (0, 1), "table_heavy": (2, 3)}
 
 
 def page_images(pdf: bytes) -> list[tuple[bytes, int, int, str]]:
@@ -93,6 +113,37 @@ def build_pdf(images: list[tuple[bytes, int, int, str]], n_pages: int, dpi: int 
     return bytes(out)
 
 
+def corpus_pdf(corpus: str, n_pages: int) -> tuple[bytes, dict[str, int]]:
+    """The bench's PDF and its page count by kind."""
+    synth = page_images(PDF.read_bytes())
+    if corpus == "ocr":
+        return build_pdf(synth, n_pages), {"synth_text": n_pages}
+    layout = page_images(LAYOUT_PDF.read_bytes())
+    kinds = [(name, [layout[i] for i in idx]) for name, idx in LAYOUT_KINDS.items()]
+    kinds.append(("synth_text", synth))
+    images, counts = [], {}
+    for k, (name, streams) in enumerate(kinds):
+        n = n_pages // 3 + (k < n_pages % 3)
+        images += [streams[i % len(streams)] for i in range(n)]
+        counts[name] = n
+    return build_pdf(images, len(images)), counts
+
+
+def set_corpus_env(corpus: str, int8_head: bool) -> None:
+    """The stage switches of the corpus: OCR only, or the demo layout with
+    the formula stage and no table."""
+    if corpus == "ocr":
+        for k in ("LAYOUT", "FORMULA", "TABLE"):
+            os.environ.setdefault(f"RAPIDDOC_DISABLE_{k}", "1")
+    else:
+        for k in ("LAYOUT", "FORMULA"):
+            os.environ.pop(f"RAPIDDOC_DISABLE_{k}", None)
+        os.environ["RAPIDDOC_DISABLE_TABLE"] = "1"
+        os.environ["RAPIDDOC_DEMO_LAYOUT"] = "1"
+    if int8_head:
+        os.environ["RAPIDDOC_INT8_HEAD"] = "1"
+
+
 def card() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -117,14 +168,16 @@ def device_busy_share(fn) -> tuple[float, float]:
     return kernel_us / 1e3, wall * 1e3
 
 
-def run(n_pages: int, device: str, dtype: torch.dtype, runs: int = 2) -> dict:
-    for k in ("LAYOUT", "FORMULA", "TABLE"):
-        os.environ.setdefault(f"RAPIDDOC_DISABLE_{k}", "1")
+def run(n_pages: int, device: str, dtype: torch.dtype, runs: int = 2,
+        corpus: str = "ocr", int8_head: bool = False) -> dict:
+    set_corpus_env(corpus, int8_head)
     from . import RapidDoc
     from .ops.ctc_head import fused_ctc_argmax
+    from .ops.quant_head import fused_argmax_int8
     from .utils.trace import GLOBAL_TRACER
 
-    pdf = build_pdf(page_images(PDF.read_bytes()), n_pages)
+    pdf, counts = corpus_pdf(corpus, n_pages)
+    n_pages = sum(counts.values())
     doc = RapidDoc(device=device, dtype=dtype)
     cuda = torch.device(device).type == "cuda"
 
@@ -137,11 +190,15 @@ def run(n_pages: int, device: str, dtype: torch.dtype, runs: int = 2) -> dict:
     t0 = time.perf_counter()
     parse()  # warm-up: model build, kernel builds, cuDNN's algorithm picks
     warmup_s = time.perf_counter() - t0
-    rec = doc._stack().analyzer.ocr.recognizer.session.stats
+    analyzer = doc._stack().analyzer
+    rec = analyzer.ocr.recognizer.session.stats
+    formula = analyzer.formula_model.stats if analyzer.formula_model is not None else None
     walls = []
     for _ in range(runs):
         GLOBAL_TRACER.reset()
         crops0, calls0, launches0 = rec.items, rec.calls, fused_ctc_argmax.launches
+        k2_0 = fused_argmax_int8.launches
+        f0 = (formula.dispatches, formula.decode_steps) if formula else (0, 0)
         t0 = time.perf_counter()
         out = parse()
         walls.append(time.perf_counter() - t0)
@@ -152,6 +209,7 @@ def run(n_pages: int, device: str, dtype: torch.dtype, runs: int = 2) -> dict:
     rec_s = report.get("ocr_rec", {}).get("total_s", 0.0)
     result = {
         "metric": "e2e_ocr_pages_per_sec",
+        "corpus": corpus, "corpus_pages": counts,
         "pages": n_pages,
         "pages_per_sec": n_pages * len(walls) / sum(walls),
         "pages_per_sec_runs": [n_pages / w for w in walls],
@@ -166,6 +224,14 @@ def run(n_pages: int, device: str, dtype: torch.dtype, runs: int = 2) -> dict:
         },
         "device": str(torch.device(device)), "dtype": str(dtype).removeprefix("torch."),
     }
+    if formula is not None:
+        result["formula_detail"] = {
+            "regions": report.get("formula", {}).get("items", 0),
+            "decode_dispatches": formula.dispatches - f0[0],
+            "decode_steps": formula.decode_steps - f0[1],
+            "int8_head": bool(os.environ.get("RAPIDDOC_INT8_HEAD")),
+            "quant_head_launches": fused_argmax_int8.launches - k2_0,
+        }
     if cuda:
         kernel_ms, wall_ms = device_busy_share(parse)
         result.update({
@@ -179,7 +245,10 @@ def run(n_pages: int, device: str, dtype: torch.dtype, runs: int = 2) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--corpus", choices=("ocr", "layout"), default="ocr")
     ap.add_argument("--pages", type=int, default=56)
+    ap.add_argument("--int8-head", action="store_true",
+                    help="RAPIDDOC_INT8_HEAD=1: formula decode steps through K2")
     ap.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
@@ -191,7 +260,7 @@ def main() -> None:
         print(smi, flush=True)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    result = run(args.pages, args.device, dtype)
+    result = run(args.pages, args.device, dtype, corpus=args.corpus, int8_head=args.int8_head)
     if torch.device(args.device).type == "cuda":
         result["card"] = smi
     print(json.dumps(result), flush=True)

@@ -4,8 +4,8 @@ Port of ``rapiddoc_tpu/models/layout/hgnet.py:12-239``: ``STAGE_CONFIGS``
 (B0-B6), ``LearnableAffine``, ``HGConvBNAct``, ``HGLightConv``,
 ``HGStem``, ``HGBlock``, ``HGStage`` and ``PPHGNetV2``. Parameter names
 follow the flax module tree, so ``models/weights.py`` carries a flax
-checkpoint over by name. The formula encoder uses it now; the layout
-model will reuse it.
+checkpoint over by name. The formula encoder and the layout model
+(``rtdetr.py``) use it.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Model registry of the port: builds the OCR system and the formula
-recognizer from the demo checkpoints.
+"""Model registry of the port: builds the model stack from the demo
+checkpoints.
 
 Port of the demo branch of ``build_ocr_system``
 (``rapiddoc_tpu/models/registry.py:72-158``): DBNet and SVTRRec with
@@ -10,15 +10,19 @@ as the published 18,710-entry ``ppocrv6_small_dict.txt``; the head is
 then random-init (from ``HEAD_SEED``) at that width over the demo
 backbone and neck.
 
-``build_analyzer`` is the JAX package's ``build_analyzer``
-(``rapiddoc_tpu/models/registry.py:194-260``) as it builds under
-``RAPIDDOC_DISABLE_LAYOUT/FORMULA/TABLE=1``: the OCR system and the
-document analyzer around it.
-
 ``build_formula_recognizer`` is the demo branch of
 ``FormulaRecognizer.build`` (``rapiddoc_tpu/models/formula/engine.py:197-236``):
 ``formula_demo.npz`` + ``formula_demo.json`` (PPHGNetV2-B0 encoder, a
 2-layer MBart decoder at the published widths, 57 tokens).
+
+``build_layout_model``, ``build_formula_model`` and ``build_analyzer``
+are the JAX package's (``registry.py:161-260``): the layout detector
+(``LayoutDetector.build``: a published npz, or the demo checkpoint under
+``RAPIDDOC_DEMO_LAYOUT``) or None where its checkpoint is missing, the
+formula recognizer, the OCR system and the document analyzer around
+them. The table stage, orientation, checkboxes, custom models, other
+languages and published OCR checkpoints raise NotImplementedError
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from ..pipeline.scheduler import DocumentAnalyzer
 from ..utils.logging import get_logger
 from ..utils.unported import not_ported
 from .formula.engine import DemoFormulaVocab, FormulaConfig, FormulaRecognizer
+from .layout.engine import LayoutDetector
 from .ocr.det import DBNet
 from .ocr.engine import TextDetector, TextRecognizer, TextSystem
 from .ocr.pre_post import CTCLabelDecoder
@@ -106,6 +111,31 @@ def build_formula_recognizer(
     return rec
 
 
+def build_layout_model(configs: dict | None = None, device=None,
+                       dtype: torch.dtype | None = None) -> LayoutDetector | None:
+    """The layout detector, or None where the JAX package has none:
+    RAPIDDOC_DISABLE_LAYOUT, or no checkpoint (neither a published one
+    nor the demo one asked for)."""
+    if os.environ.get("RAPIDDOC_DISABLE_LAYOUT"):
+        return None
+    try:
+        return LayoutDetector.build(configs or {}, device=device, dtype=dtype)
+    except FileNotFoundError:
+        return None
+
+
+def build_formula_model(configs: dict | None = None, device=None,
+                        dtype: torch.dtype | None = None) -> FormulaRecognizer | None:
+    """The demo formula recognizer, or None under RAPIDDOC_DISABLE_FORMULA.
+    A published checkpoint under the models dir raises: its HF tokenizer
+    is not ported."""
+    if os.environ.get("RAPIDDOC_DISABLE_FORMULA"):
+        return None
+    if (get_models_dir() / "formula_net_plus_m.npz").is_file():
+        raise not_ported("the published formula checkpoint and its tokenizer", "checkpoints")
+    return build_formula_recognizer(device=device, dtype=dtype)
+
+
 def build_analyzer(
     lang: str = "ch",
     formula_enable: bool = True,
@@ -114,13 +144,13 @@ def build_analyzer(
     device: str | torch.device | None = None,
     dtype: torch.dtype | None = None,
 ) -> DocumentAnalyzer:
-    """The document analyzer over the demo OCR system on ``device`` (the
-    card by default) in ``dtype`` (bf16 by default). Raises
+    """The document analyzer on ``device`` (the card by default) in
+    ``dtype`` (bf16 by default): the layout detector, the OCR system and
+    the formula recognizer as the JAX package builds them. Raises
     NotImplementedError, naming its ROADMAP item, where the JAX package
-    would build a stage the port does not have yet: layout unless
-    RAPIDDOC_DISABLE_LAYOUT is set, the formula and table stages when
-    enabled unless RAPIDDOC_DISABLE_FORMULA / _TABLE is set, custom
-    models, orientation, checkboxes, other languages and published OCR
+    would build a stage the port does not have yet: the table stage when
+    enabled unless RAPIDDOC_DISABLE_TABLE is set, custom models,
+    orientation, checkboxes, other languages and published OCR
     checkpoints."""
     configs = configs or {}
     for stage, cfg in configs.items():
@@ -134,10 +164,6 @@ def build_analyzer(
             )
         if isinstance(cfg, dict) and cfg.get("custom_model") is not None:
             raise not_ported(f"a custom {stage} model", "host_families")
-    if not os.environ.get("RAPIDDOC_DISABLE_LAYOUT"):
-        raise not_ported("the layout model (set RAPIDDOC_DISABLE_LAYOUT=1)", "layout")
-    if formula_enable and not os.environ.get("RAPIDDOC_DISABLE_FORMULA"):
-        raise not_ported("the formula stage (set RAPIDDOC_DISABLE_FORMULA=1)", "formula")
     if table_enable and not os.environ.get("RAPIDDOC_DISABLE_TABLE"):
         raise not_ported("the table stage (set RAPIDDOC_DISABLE_TABLE=1)", "table")
     if env_bool("USE_DOC_ORIENTATION_CLASSIFY") or os.environ.get(
@@ -160,6 +186,10 @@ def build_analyzer(
         if any((models_dir / f).is_file() for f in ("ocr_det_v6_small.npz", "ocr_rec_v6_small.npz")):
             raise not_ported(f"published OCR checkpoints in {models_dir}", "ocr_family")
         ocr = build_ocr_system(device=device, dtype=dtype)
+    layout = build_layout_model(configs.get("layout"), device=device, dtype=dtype)
+    formula = (build_formula_model(configs.get("formula"), device=device, dtype=dtype)
+               if formula_enable else None)
     return DocumentAnalyzer(
-        ocr_system=ocr, formula_enable=formula_enable, table_enable=table_enable,
+        layout_model=layout, ocr_system=ocr, formula_model=formula,
+        formula_enable=formula_enable, table_enable=table_enable,
     )

@@ -15,8 +15,16 @@ its type decides the layout change:
 - any other parameter (the (Cin, Cout, 2, 2) deconv kernels, the DB
   head's ``final_kernel``, the CTC head's (C, V) kernel, the MBart
   decoder's bare ``embed_positions``, the scalar ``scale``/``bias`` of
-  HGNet's ``LearnableAffine``) as stored, the root module's own
-  included.
+  HGNet's ``LearnableAffine``, and the ``kernel``/``bias`` of the layout
+  model's ``DenseGeneral``, which keep flax's multi-head attention
+  layouts: (C, heads, head_dim) and (heads, head_dim) for q/k/v,
+  (heads, head_dim, C) and (C,) for the output) as stored, the root
+  module's own included.
+
+The layout checkpoint (``layout_demo.npz``: 557 arrays, 16.8 M
+parameters; or a JAX random init of the published shape, flattened) maps
+onto ``models/layout/rtdetr.py``'s ``RTDETR`` this way with no table of
+its own: its modules carry the flax names.
 
 A checkpoint of several models in one file (the formula recognizer's
 ``encoder/…``, ``decoder/…`` and ``mem_proj/…``) is cut into one flat

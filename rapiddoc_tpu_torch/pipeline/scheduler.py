@@ -1,24 +1,27 @@
-"""Batch inference scheduler: pages -> layout dets (+OCR fills).
+"""Batch inference scheduler: pages -> layout dets (+OCR/formula fills).
 
-Port of ``rapiddoc_tpu/pipeline/scheduler.py`` for the path that runs
-with layout, formula and table disabled: the structural fallback layout
-(native text blocks and image placements become dets) and full-page OCR
-(``_run_page_ocr``: det on the whole page, crop, rec with the fused CTC
-head), driving the port's ``TextSystem``. The helpers are the JAX
-package's code, unchanged.
+Port of ``rapiddoc_tpu/pipeline/scheduler.py`` without the table stage:
+① the layout model (``demo_txt_fallback`` routes txt-mode pages of a
+demo-trained detector to the structural fallback) or, for pages without
+one, the structural fallback layout (native text blocks and image
+placements become dets); ② full-page OCR (``_run_page_ocr``: det on the
+whole page with formula regions whitened, crop, rec with the fused CTC
+head); ③ the formula recognizer on the layout's formula regions, or
+their collection into a ``DeferredAR`` that the facade flushes in full
+decode buckets across page windows; ⑤ ``_recover_missed_text``, a
+focused rec pass over layout text regions the page-level det missed.
+The helpers are the JAX package's code, unchanged.
 
 Not ported yet, and raising NotImplementedError with its ROADMAP item
-where the JAX package would run it: the layout model, orientation,
-checkbox detection, formula and table recognition (with the JAX
-package's ``DeferredAR``, which pools their decode work across windows),
-missed-text recovery (it needs layout) and seal OCR.
+where the JAX package would run it: orientation, checkbox detection,
+table recognition (with ``DeferredAR``'s table half) and seal OCR.
 
 One difference of policy: rec runs as one call, without the JAX
 package's ``_rec_with_fallback`` (a failed batch retried crop by crop,
-each failed crop an empty low-score text). ``crop_quad`` never yields an
-empty crop, so what fails there is the card or a compiled piece (a
-kernel that does not build, load or launch), and that is an error,
-never an empty text.
+each failed crop an empty low-score text), in ``_run_page_ocr`` and in
+``_recover_missed_text``. What fails there is the card or a compiled
+piece (a kernel that does not build, load or launch), and that is an
+error, never an empty text.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from typing import Sequence
 import numpy as np
 
 from ..types import CategoryId
+from ..utils import boxes as B
 from ..utils.logging import get_logger
 from ..utils.trace import stage_timer
 from ..utils.unported import not_ported
@@ -238,24 +242,59 @@ def _split_math_bands(block: dict) -> list[tuple[str, list[dict]]]:
     return runs
 
 
-class DocumentAnalyzer:
-    """Runs the model stack over rendered page images: the OCR system,
-    with the structural fallback layout in place of a layout model."""
+class DeferredAR:
+    """Doc-scope accumulator of formula regions collected across page
+    windows (the JAX package's, ``scheduler.py:283-318``, without its
+    table half, which comes with the table stage).
 
-    # no layout, formula, table or orientation model runs in the port yet
-    layout_model = None
-    formula_model = None
-    table_model = None
-    orientation_model = None
+    AR decode throughput is set by batch occupancy: a 16-slot decode
+    bucket running 2 regions wastes 7/8 of every step. Windows usually
+    contribute 0-4 regions each, so regions are pooled here and decoded
+    when a full bucket accumulates (or at the end of the document)."""
+
+    # full decode bucket size (models/formula/engine.py batch_chunks
+    # sizes=(4, 16))
+    FORMULA_FLUSH = 16
+
+    def __init__(self) -> None:
+        # (crop, owner_det)
+        self.formula: list[tuple[np.ndarray, dict]] = []
+        self._mark = 0
+
+    def window_added(self) -> int:
+        """Items contributed since the previous call (lets the caller
+        fast-path windows with no AR work)."""
+        added = len(self.formula) - self._mark
+        self._mark = len(self.formula)
+        return added
+
+    def should_flush(self) -> bool:
+        return len(self.formula) >= self.FORMULA_FLUSH
+
+
+class DocumentAnalyzer:
+    """Runs the model stack over rendered page images."""
 
     def __init__(
         self,
+        layout_model=None,
         ocr_system=None,
+        formula_model=None,
+        table_model=None,
+        orientation_model=None,
         formula_enable: bool = True,
         table_enable: bool = True,
         checkbox_enable: bool = False,
     ):
+        if table_model is not None:
+            raise not_ported("the table stage", "table")
+        if orientation_model is not None:
+            raise not_ported("the orientation classifier", "orientation_seal")
+        self.layout_model = layout_model
         self.ocr = ocr_system
+        self.formula_model = formula_model
+        self.table_model = None
+        self.orientation_model = None
         self.formula_enable = formula_enable
         self.table_enable = table_enable
         self.checkbox_enable = checkbox_enable
@@ -272,11 +311,12 @@ class DocumentAnalyzer:
         text_dicts: Sequence[dict | None],
         image_boxes_per_page: Sequence[list[list[float]] | None] | None = None,
         scales: Sequence[float] | None = None,
+        deferred: DeferredAR | None = None,
     ) -> list[dict]:
         with self._lock:
             return self._analyze_pages_impl(
                 page_images, parse_modes, text_dicts,
-                image_boxes_per_page, scales,
+                image_boxes_per_page, scales, deferred,
             )
 
     def _analyze_pages_impl(
@@ -286,28 +326,48 @@ class DocumentAnalyzer:
         text_dicts: Sequence[dict | None],
         image_boxes_per_page: Sequence[list[list[float]] | None] | None = None,
         scales: Sequence[float] | None = None,
+        deferred: DeferredAR | None = None,
     ) -> list[dict]:
         """Returns one model_info = {"layout_dets": [...]} per page, in the
-        JAX package's order of stages (those not ported are absent from
-        this analyzer, or raise)."""
+        JAX package's order of stages. With ``deferred``, the formula
+        decode only collects its regions, and the caller runs
+        flush_deferred() when a full bucket accumulates."""
         n = len(page_images)
         scales = scales or [1.0] * n
         image_boxes_per_page = image_boxes_per_page or [None] * n
         model_infos: list[dict] = [{"layout_dets": []} for _ in range(n)]
 
-        # (1) no layout model: every page takes the structural fallback
-        repeated = decoration_texts(text_dicts)
-        for i in range(n):
-            self._fallback_layout(
-                model_infos[i],
-                parse_modes[i],
-                text_dicts[i],
-                image_boxes_per_page[i],
-                scales[i],
-                repeated,
-            )
+        # ① layout detection. A demo-trained layout checkpoint opts out
+        # of txt-mode pages (demo_txt_fallback): native-text structural
+        # layout is stronger there, while ocr-mode (scanned) pages gain
+        # real region structure from the detector.
+        layout_pages: list[int] = []
+        if self.layout_model is not None:
+            txt_fallback = getattr(self.layout_model, "demo_txt_fallback", False)
+            layout_pages = [
+                i for i in range(n) if not (txt_fallback and parse_modes[i] == "txt")
+            ]
+            if layout_pages:
+                with stage_timer("layout", len(layout_pages)):
+                    layout_results = self.layout_model.batch_predict(
+                        [page_images[i] for i in layout_pages]
+                    )
+                for i, dets in zip(layout_pages, layout_results):
+                    model_infos[i]["layout_dets"].extend(dets)
+        fallback_pages = sorted(set(range(n)) - set(layout_pages))
+        if fallback_pages:
+            repeated = decoration_texts(text_dicts)
+            for i in fallback_pages:
+                self._fallback_layout(
+                    model_infos[i],
+                    parse_modes[i],
+                    text_dicts[i],
+                    image_boxes_per_page[i],
+                    scales[i],
+                    repeated,
+                )
 
-        # (2) OCR for ocr-mode pages
+        # ② OCR for ocr-mode pages
         ocr_pages = [
             i for i in range(n) if parse_modes[i] == "ocr" and self.ocr is not None
         ]
@@ -315,8 +375,9 @@ class DocumentAnalyzer:
             with stage_timer("ocr", len(ocr_pages)):
                 self._run_page_ocr(ocr_pages, page_images, model_infos)
             # a near-full-page fallback ImageBody on a page where OCR
-            # found real text is the scan substrate, not a figure
-            for i in ocr_pages:
+            # found real text is the scan substrate, not a figure — a
+            # picture-only page (no text found) keeps its image
+            for i in sorted(set(ocr_pages) & set(fallback_pages)):
                 _drop_scan_substrate_images(
                     model_infos[i], page_images[i].shape[:2]
                 )
@@ -324,14 +385,71 @@ class DocumentAnalyzer:
         if self.checkbox_enable:
             raise not_ported("checkbox detection", "host_families")
 
-        # (6) seal OCR runs on layout's seal regions, which the fallback
-        # layout never makes
+        # ③ formulas
+        if self.formula_enable and self.formula_model is not None:
+            self._run_formulas(page_images, model_infos, deferred)
+
+        # ⑤ leftover text recovery: layout Text regions the page-level
+        # det missed entirely get a focused rec pass
+        if self.ocr is not None and self.layout_model is not None:
+            self._recover_missed_text(page_images, model_infos)
+
+        # ⑥ seal OCR runs on the layout's seal regions
         if self.ocr is not None and any(
             det.get("original_label") == "seal" and not det.get("text")
             for info in model_infos for det in info["layout_dets"]
         ):
             raise not_ported("seal OCR", "orientation_seal")
         return model_infos
+
+    def _recover_missed_text(self, page_images, model_infos) -> None:
+        from ..models.ocr.engine import crop_quad
+
+        crops, owners = [], []
+        for page_i, info in enumerate(model_infos):
+            dets = info["layout_dets"]
+            ocr_boxes = [
+                d["poly"] for d in dets
+                if d["category_id"] in (CategoryId.OcrText, CategoryId.LowScoreText)
+            ]
+            for det in dets:
+                if det["category_id"] != CategoryId.Text or det.get("text"):
+                    continue
+                poly = det["poly"]
+                box = [min(poly[0::2]), min(poly[1::2]),
+                       max(poly[0::2]), max(poly[1::2])]
+                covered = any(
+                    B.overlap_ratio(
+                        [min(p[0::2]), min(p[1::2]), max(p[0::2]), max(p[1::2])], box
+                    ) > 0.05
+                    for p in ocr_boxes
+                )
+                if covered:
+                    continue
+                if box[2] - box[0] < 8 or box[3] - box[1] < 6:
+                    continue
+                quad = np.array(
+                    [[box[0], box[1]], [box[2], box[1]],
+                     [box[2], box[3]], [box[0], box[3]]], np.float32,
+                )
+                crop = crop_quad(page_images[page_i], quad)
+                if crop.size:
+                    crops.append(crop)
+                    owners.append((page_i, det))
+        if not crops:
+            return
+        results = self.ocr.recognizer(crops)
+        for (page_i, det), rec in zip(owners, results):
+            if not rec.text:
+                continue
+            model_infos[page_i]["layout_dets"].append(
+                {
+                    "category_id": CategoryId.OcrText,
+                    "poly": list(det["poly"]),
+                    "score": rec.score,
+                    "text": rec.text,
+                }
+            )
 
     # ------------------------------------------------------- fallbacks
 
@@ -506,3 +624,50 @@ class DocumentAnalyzer:
                 }
             )
 
+
+    # ---------------------------------------------------------- formula
+
+    def _run_formulas(
+        self, page_images, model_infos, deferred: DeferredAR | None = None
+    ) -> None:
+        regions = []
+        owners = []
+        for page_i, info in enumerate(model_infos):
+            for det in info["layout_dets"]:
+                if det["category_id"] in (
+                    CategoryId.InterlineEquation_Layout,
+                    CategoryId.InterlineEquation_YOLO,
+                    CategoryId.InlineEquation,
+                ) and not det.get("latex"):
+                    x0, y0, _, _, x1, y1, _, _ = det["poly"]
+                    crop = page_images[page_i][
+                        max(int(y0), 0) : int(y1) + 1, max(int(x0), 0) : int(x1) + 1
+                    ]
+                    if crop.size:
+                        regions.append(crop)
+                        owners.append(det)
+        if not regions:
+            return
+        if deferred is not None:
+            # copy the crops: region views would pin whole page arrays
+            # in memory until the flush
+            deferred.formula.extend(
+                (np.array(r, copy=True), o) for r, o in zip(regions, owners)
+            )
+            return
+        with stage_timer("formula", len(regions)):
+            latexes = self.formula_model.batch_predict(regions)
+        for det, latex in zip(owners, latexes):
+            det["latex"] = latex
+
+    def flush_deferred(self, deferred: DeferredAR) -> None:
+        with self._lock:
+            if deferred.formula:
+                regions = [r for r, _ in deferred.formula]
+                owners = [o for _, o in deferred.formula]
+                with stage_timer("formula", len(regions)):
+                    latexes = self.formula_model.batch_predict(regions)
+                for det, latex in zip(owners, latexes):
+                    det["latex"] = latex
+                deferred.formula.clear()
+            deferred.window_added()  # reset the mark

@@ -2,11 +2,8 @@
 
 Port of ``rapiddoc_tpu/utils/images.py`` on numpy page arrays (H, W, 3).
 The crops and their digest names (a sha256 of the RGB pixels) are the
-JAX package's; the payload it writes for a span is a JPEG made by PIL,
-and the port has no JPEG encoder yet, so writing one raises
-NotImplementedError. Scanned text pages have no such span: their
-full-page scan image is dropped before assembly
-(``pipeline/scheduler.py`` ``_drop_scan_substrate_images``).
+JAX package's; the payload written for a span is the JPEG PIL writes at
+quality 90, made by ``pdfio/jpeg_encode.py`` byte for byte.
 """
 from __future__ import annotations
 
@@ -14,6 +11,7 @@ import hashlib
 
 import numpy as np
 
+from ..pdfio.jpeg_encode import QUALITY, encode_jpeg
 from .unported import not_ported
 
 
@@ -35,7 +33,11 @@ def image_digest_name(img: np.ndarray, suffix: str = "jpg") -> str:
 
 
 def encode_image(img: np.ndarray, fmt: str = "JPEG", quality: int = 90) -> bytes:
-    raise not_ported("the JPEG payload of a span image", "span_jpeg")
+    """The bytes of ``PIL.Image.save(buf, "JPEG", quality=90)`` of the RGB
+    crop; the JAX package writes no other format or quality."""
+    if fmt != "JPEG" or quality != QUALITY:
+        raise not_ported(f"{fmt} span images at quality {quality}", "pdfio")
+    return encode_jpeg(img)
 
 
 def cut_span_images(

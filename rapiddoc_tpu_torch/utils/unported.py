@@ -10,16 +10,14 @@ from __future__ import annotations
 # ROADMAP.md, Queue 1: item number and title of each item the port
 # raises for
 ITEMS = {
-    "span_jpeg": (4, "JPEG encoder for span images"),
     "small_resize": (5, "PIL-BILINEAR resize of small placed images"),
     "ocr_family": (7, "the rest of the OCR family"),
-    "layout": (8, "layout"),
-    "formula": (9, "formula inside the pipeline"),
     "table": (10, "table"),
     "orientation_seal": (11, "orientation and seal"),
     "pdfio": (12, "the rest of pdfio/ and pipeline/"),
     "sniff": (13, "ONNX interpreter and sniffing"),
     "host_families": (15, "the host-only families"),
+    "checkpoints": (17, "checkpoint converters and published checkpoints"),
 }
 
 

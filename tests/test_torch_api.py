@@ -238,7 +238,7 @@ def test_port_bf16_meets_the_card_limits(pdf, golden):
     assert vs["cer"] <= smoke.PIPELINE_BF16_MAX_CER
 
 
-@pytest.mark.parametrize("stage", ["LAYOUT", "FORMULA", "TABLE"])
+@pytest.mark.parametrize("stage", ["TABLE"])
 def test_port_raises_for_stages_not_ported(pdf, stage):
     import torch
 
@@ -248,6 +248,47 @@ def test_port_raises_for_stages_not_ported(pdf, stage):
         del os.environ[f"RAPIDDOC_DISABLE_{stage}"]
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
             RapidDoc(device="cpu", dtype=torch.float32)(pdf, parse_method="ocr")
+
+
+@pytest.mark.parametrize("stage", ["LAYOUT", "LAYOUT_DEMO", "FORMULA"])
+def test_port_builds_layout_and_formula_as_jax_package(stage):
+    """With the stage's switch off, the port's analyzer holds what the
+    JAX package's registry builds there: without RAPIDDOC_DEMO_LAYOUT no
+    layout model (the fallback layout); with it the demo detector, its
+    arch from layout_demo.json and txt pages left to the fallback; with
+    the formula stage on, the demo recognizer and its vocabulary."""
+    import torch
+
+    from rapiddoc_tpu.models import registry as jax_registry
+
+    from rapiddoc_tpu_torch.models.layout.engine import LayoutDetector
+    from rapiddoc_tpu_torch.models.registry import build_analyzer
+
+    extra = {"RAPIDDOC_DEMO_LAYOUT": "1"} if stage == "LAYOUT_DEMO" else {}
+    with held_env(**extra):
+        del os.environ["RAPIDDOC_DISABLE_" + stage.split("_")[0]]
+        analyzer = build_analyzer(device="cpu", dtype=torch.float32)
+        if stage == "FORMULA":
+            assert analyzer.layout_model is None
+            want = jax_registry.build_formula_model()
+            got = analyzer.formula_model
+            assert got.tokenizer.vocab == want.tokenizer.vocab
+            for key in ("max_len", "vocab_size", "layers", "backbone_size", "out_index",
+                        "default_length_bucket"):
+                assert getattr(got.config, key) == getattr(want.config, key), key
+            return
+        assert analyzer.formula_model is None
+        want = jax_registry.build_layout_model()
+        if stage == "LAYOUT":
+            assert analyzer.layout_model is None and want is None
+            return
+        got = analyzer.layout_model
+        assert isinstance(got, LayoutDetector)
+        assert got.demo_txt_fallback and want.demo_txt_fallback
+        for key in ("model_size", "input_size", "num_queries", "dec_layers", "with_masks",
+                    "conf_threshold", "class_thresholds", "markdown_ignore_labels"):
+            assert getattr(got.config, key) == getattr(want.config, key), key
+        assert got.labels == want.labels
 
 
 @pytest.mark.parametrize("error", [
@@ -282,8 +323,25 @@ def test_port_raises_for_inputs_not_ported(tmp_path):
         doc(tmp_path / "a.docx")
     with pytest.raises(NotImplementedError, match="URL"):
         doc("https://example.invalid/a.pdf")
-    with pytest.raises(NotImplementedError, match="data_uri"):
-        RapidDoc(device="cpu", image_output_mode="data_uri")
+
+
+
+def test_data_uri_markdown_equals_jax_package():
+    """image_output_mode='data_uri' embeds each payload as the JAX
+    package's _embed_data_uris does (a JPEG span image from the port's
+    encoder, a PNG, an <img> tag, a path with no payload)."""
+    from rapiddoc_tpu.api import RapidDoc as JaxRapidDoc
+
+    from rapiddoc_tpu_torch import RapidDoc
+    from rapiddoc_tpu_torch.pdfio.jpeg_encode import encode_jpeg
+
+    rgb = np.random.default_rng(0).integers(0, 256, (9, 17, 3), dtype=np.uint8)
+    images = {"images/a.jpg": encode_jpeg(rgb), "images/b.png": b"\x89PNG\r\n\x1a\n" + b"\0" * 8}
+    md = ("# t\n\n![](images/a.jpg)\n\n<img src=\"images/b.png\"/>\n\n"
+          "![](images/missing.jpg)\n")
+    got = RapidDoc(device="cpu", image_output_mode="data_uri")._embed_data_uris(md, images)
+    assert got == JaxRapidDoc._embed_data_uris(md, images)
+    assert got.count("data:image/jpeg;base64,") == 1 and "data:image/png;base64," in got
 
 
 def compare(pdf: bytes) -> dict:
