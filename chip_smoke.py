@@ -70,6 +70,28 @@ per shape or run):
           with the int8 head on (timed, K1's launches held to the rec
           dispatches and K2's to the decode steps) within limits of the
           bf16 golden; pages/s, stage ms/page and the device's busy share
+  table   the table models (demo checkpoints) on the layout fixture's 15
+          table crops (their sha256 the golden's): fp32 (TF32 off)
+          classifier kinds, UNet cells and grid, SLANet and UniTable
+          token streams equal to the JAX package's, SLANet's boxes within
+          0.05 px and every differing UNet line bit a near-tie (|l1 - l0|
+          < 1e-3); bf16 within bands of the JAX package's bf16; ms per
+          table of the classifier and the UNet at batches 1, 2 and 4 (the
+          UNet split into host preprocessing, device and host cell
+          recovery), SLANet ms per decode step at buckets 4 and 16; the
+          published UniTable shape (12x768 encoder, 4x768 decoder, random
+          weights from a seed) at batch 4 and max_len 256: decode steps/s
+          and the device's busy share
+  pipeline_table  RapidDoc(device="cuda")(pdf, parse_method="ocr") on
+          the layout fixture with RAPIDDOC_DEMO_LAYOUT=1 and the table
+          stage on: fp32 Markdown, content list, every table's HTML,
+          LaTeX and payload sha256 equal to the golden's, in one window
+          and with one page per window (DeferredAR's table half)
+  main_path  the same parse in bf16 with the int8 head on, this slice's
+          main path: timed, K1's launches held to the rec dispatches and
+          K2's to the decode steps (counted from 0 for this run), within
+          bands of the bf16 golden; pages/s, stage ms/page (table
+          included) and the device's busy share
 Then a timing line (seconds by phase), a ``{"kernels": [...]}`` line,
 the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
@@ -162,6 +184,33 @@ LAYOUT_TIMED_RUNS = 2  # per batch size; the published shape is timed once
 # or images.
 LAYOUT_PARSE_BF16 = {"min_exact_share": 0.70, "max_cer": 0.32, "max_latex_cer": 0.65,
                      "max_count_gap": 2}
+# The table path (tests/test_torch_table.py holds the generator of its
+# crops and golden). fp32: a UNet line bit may differ from the JAX
+# package's only where |l1 - l0| is below TABLE_UNET_TIE, and SLANet's
+# boxes stay within TABLE_SLANET_BOX_TOL px of the golden's.
+TABLE_UNET_TIE = 1e-3
+TABLE_SLANET_BOX_TOL = 0.05
+TABLE_BATCHES = (1, 2, 4)  # UNet and classifier batches timed
+TABLE_SLANET_BUCKETS = (4, 16)
+TABLE_TIMED_RUNS = 2
+UNITABLE_MAX_LEN = 256
+UNITABLE_PUBLISHED_BATCH = 4
+# The bf16 table models on the 15 crops against the JAX package's bf16
+# outputs, and the bf16 parse with the table stage on against the bf16
+# int8 golden (python tests/test_torch_table.py --compare). The port's
+# bf16 on the CPU: kinds 14/15, 1.9e-4 of the UNet's bits differ, grids
+# 14/15, SLANet token CER 0.0022, UniTable 0.0094; the JAX package's own
+# fp32 against its bf16: 14/15, 8.7e-4, 13/15, 0.0022, 0.028. The parse:
+# 144/169 lines equal (0.852), CER 0.096, LaTeX CER 0.499, 11/15 tables'
+# HTML equal, 18/18 formulas, 1/1 image; the JAX package's fp32 against
+# its bf16: 0.805, 0.121, 0.626, 6/15 tables. The margins: one kind, 2.3x
+# the JAX package's own bit share, two grids, 0.05 of token CER, 0.10 of
+# lines and CER, 0.15 of LaTeX CER, 4 tables, 2 counts.
+TABLE_BF16 = {"min_kinds_equal": 13, "max_unet_bit_diff_share": 2e-3,
+              "min_grids_equal": 12, "max_slanet_token_cer": 0.05,
+              "max_unitable_token_cer": 0.06}
+TABLE_PARSE_BF16 = {"min_exact_share": 0.75, "max_cer": 0.20, "max_latex_cer": 0.65,
+                    "max_count_gap": 2, "min_tables_equal": 7}
 DET_MEAN = (0.485, 0.456, 0.406)
 DET_STD = (0.229, 0.224, 0.225)
 
@@ -1196,6 +1245,104 @@ def phase_layout(golden: dict, card: str) -> None:
                         "dets_per_page": [len(d) for d in pub_out]}})
 
 
+def table_assets() -> tuple[dict, dict]:
+    """(golden, stored arrays) of the table path."""
+    import numpy as np
+
+    assets = ROOT / "rapiddoc_tpu_torch" / "assets"
+    golden = json.loads((assets / "table_smoke_golden.json").read_text())
+    with np.load(assets / "table_smoke_crops.npz") as z:
+        return golden, dict(z)
+
+
+def table_stage_outputs(rec, uni, crops: list) -> dict:
+    """The table models on ``crops``: kinds, the UNet's line bits, cells
+    and grid, SLANet's structure and boxes, UniTable's structure."""
+    import numpy as np
+
+    wired = rec.wired
+    handles = wired.dispatch([wired.preprocess(c) for c in crops])
+    bits = np.concatenate([h[:n].cpu().numpy() for h, n in handles])
+    structs = wired.finish(crops, handles)
+    return {"kinds": rec.classifier(crops), "bits": bits,
+            "cells": [c for c, _ in structs], "grid": [[list(g) for g in gr] for _, gr in structs],
+            "slanet": rec.wireless(crops),
+            "unitable": uni(crops, max_len=UNITABLE_MAX_LEN)}
+
+
+def compare_table_stages(got: dict, want: dict, want_bits) -> dict:
+    """The table models' outputs against the JAX package's."""
+    import numpy as np
+
+    diff = np.unpackbits(got["bits"] ^ want_bits, axis=-1)
+    cells_diff = [float(np.abs(np.asarray(g, float) - np.asarray(w, float)).max(initial=0.0))
+                  for g, w in zip(got["cells"], want["cells"]) if len(g) == len(w)]
+    out = {"crops": len(got["kinds"]),
+           "kinds_equal": sum(g == w for g, w in zip(got["kinds"], want["kinds"])),
+           "unet_bits_differing": int(diff.sum()),
+           "unet_bit_diff_share": float(diff.sum()) / diff.size,
+           "grids_equal": sum(g == w for g, w in zip(got["grid"], want["grid"])),
+           "cells_max_diff_px": max(cells_diff, default=0.0)}
+    for name in ("slanet", "unitable"):
+        pairs = list(zip(got[name], want[name]))
+        edits = sum(_edits(list(g[0]), list(w[0])) for g, w in pairs)
+        out[f"{name}_equal"] = sum(list(g[0]) == list(w[0]) for g, w in pairs)
+        out[f"{name}_token_cer"] = edits / max(sum(len(w[0]) for _, w in pairs), 1)
+    out["slanet_box_max_diff_px"] = max(
+        (float(np.abs(np.asarray(g[1]) - np.asarray(w[1])).max(initial=0.0))
+         for g, w in zip(got["slanet"], want["slanet"]) if list(g[0]) == list(w[0])),
+        default=0.0)
+    return out
+
+
+def check_table_stages_fp32(vs: dict, gaps: list) -> None:
+    """fp32: everything equal, boxes within tolerance, every differing
+    UNet bit a near-tie (``gaps``: |l1 - l0| at the differing bits)."""
+    n = vs["crops"]
+    for key in ("kinds_equal", "grids_equal", "slanet_equal", "unitable_equal"):
+        check(vs[key] == n, f"table fp32: {key} {vs[key]}/{n}")
+    check(vs["cells_max_diff_px"] == 0.0, f"table fp32: cells {vs['cells_max_diff_px']} px off")
+    check(vs["slanet_box_max_diff_px"] <= TABLE_SLANET_BOX_TOL,
+          f"table fp32: a SLANet box is {vs['slanet_box_max_diff_px']:.4f} px off")
+    check(max(gaps, default=0.0) < TABLE_UNET_TIE,
+          f"table fp32: a UNet bit differs at |l1 - l0| = {max(gaps, default=0.0):.2e}")
+
+
+def check_table_stages_bf16(vs: dict) -> None:
+    lim = TABLE_BF16
+    check(vs["kinds_equal"] >= lim["min_kinds_equal"], f"table bf16: kinds {vs['kinds_equal']}")
+    check(vs["unet_bit_diff_share"] <= lim["max_unet_bit_diff_share"],
+          f"table bf16: {vs['unet_bit_diff_share']:.2e} of the UNet's bits differ")
+    check(vs["grids_equal"] >= lim["min_grids_equal"], f"table bf16: grids {vs['grids_equal']}")
+    for name in ("slanet", "unitable"):
+        check(vs[f"{name}_token_cer"] <= lim[f"max_{name}_token_cer"],
+              f"table bf16: {name} token CER {vs[f'{name}_token_cer']:.4f}")
+
+
+def compare_table_parse(got: dict, want: dict) -> dict:
+    """compare_layout_parse, and how many tables' HTML are equal."""
+    vs = compare_layout_parse(got, want)
+    vs.update(tables=len(got["tables"]), golden_tables=len(want["tables"]),
+              tables_equal=sum(g == w for g, w in zip(got["tables"], want["tables"])),
+              tables_with_html=sum(1 for t in got["tables"] if t))
+    return vs
+
+
+def check_table_parse_bf16(vs: dict) -> None:
+    lim = TABLE_PARSE_BF16
+    md = vs["markdown"]
+    check(md["exact_share"] >= lim["min_exact_share"],
+          f"main_path bf16: only {md['exact_share']:.3f} of lines equal")
+    check(md["cer"] <= lim["max_cer"], f"main_path bf16: CER {md['cer']:.4f}")
+    check(vs["latex_cer"] <= lim["max_latex_cer"],
+          f"main_path bf16: LaTeX CER {vs['latex_cer']:.4f}")
+    for key in ("formulas", "images", "tables"):
+        check(abs(vs[key] - vs[f"golden_{key}"]) <= lim["max_count_gap"],
+              f"main_path bf16: {vs[key]} {key}, golden {vs[f'golden_{key}']}")
+    check(vs["tables_equal"] >= lim["min_tables_equal"],
+          f"main_path bf16: {vs['tables_equal']} tables' HTML equal")
+
+
 def _layout_env(int8: bool, window: int | None = None) -> None:
     import os
 
@@ -1277,6 +1424,202 @@ def phase_pipeline_layout(golden: dict, card: str) -> dict:
     return counts
 
 
+def table_parse_summary(out) -> dict:
+    """parse_summary with every table det's HTML, the uuids of in-table
+    image placeholders (uuid4) masked."""
+    summary = parse_summary(out)
+    summary["tables"] = [d.get("html", "") for page in out.model_json
+                         for d in page["layout_dets"] if d["category_id"] == 5]
+    text = json.dumps(summary)
+    for page in out.model_json:
+        for det in page["layout_dets"]:
+            for fill in det.get("fill_images", []):
+                text = text.replace(fill["uuid"], "<uuid>")
+    return json.loads(text)
+
+
+def _table_env(int8: bool, window: int | None = None) -> None:
+    import os
+
+    _layout_env(int8, window)
+    os.environ.pop("RAPIDDOC_DISABLE_TABLE", None)
+
+
+def phase_table(card: str) -> None:
+    """The table models (demo checkpoints) on the layout fixture's 15
+    table crops, and the published UniTable shape."""
+    import numpy as np
+    import torch
+
+    from rapiddoc_tpu_torch.bench import device_busy_share
+    from rapiddoc_tpu_torch.models.table.engine import TableRecognizer
+    from rapiddoc_tpu_torch.models.table.unitable import (
+        UniTableDims, UniTableModel, UniTableStructure)
+    from rapiddoc_tpu_torch.models.weights import random_init
+
+    golden, stored = table_assets()
+    crops = [stored[f"crop_{i}"] for i in range(len(golden["crops"]["sha256"]))]
+    check([sha256(c) for c in crops] == golden["crops"]["sha256"],
+          "table: the crops differ from the golden's")
+    _table_env(False)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fp32 = TableRecognizer.build({}, dtype=torch.float32)
+    got = table_stage_outputs(
+        fp32, TableRecognizer.build({"strategy": "unet_unitable"}, dtype=torch.float32).wireless,
+        crops)
+    fp32_vs = compare_table_stages(got, golden["stages"]["fp32"], stored["fp32/unet_bits"])
+    diff = np.unpackbits(got["bits"] ^ stored["fp32/unet_bits"], axis=-1)
+    rows = [i for i in range(len(crops)) if diff[i].any()]
+    gaps = []
+    if rows:
+        x = torch.from_numpy(np.stack([fp32.wired.preprocess(crops[i]) for i in rows])).cuda()
+        gap = fp32.wired.logit_gap(x).cpu().numpy()
+        gaps = [float(np.abs(gap[j][diff[i] > 0]).max()) for j, i in enumerate(rows)]
+    emit({"phase": "table", "dtype": "fp32", "vs_golden_fp32": fp32_vs,
+          "unet_bit_max_abs_gap": max(gaps, default=0.0)})
+    check_table_stages_fp32(fp32_vs, gaps)
+
+    rec = TableRecognizer.build({})  # the card, bf16
+    uni = TableRecognizer.build({"strategy": "unet_unitable"}).wireless
+    bf16_vs = compare_table_stages(table_stage_outputs(rec, uni, crops),
+                                   golden["stages"]["bf16"], stored["bf16/unet_bits"])
+    check_table_stages_bf16(bf16_vs)
+    wired, sla = rec.wired, rec.wireless
+    batches = {}
+    for b in TABLE_BATCHES:
+        imgs = crops[:b]
+        prepped = [wired.preprocess(c) for c in imgs]
+        x = torch.from_numpy(np.stack(prepped)).cuda()
+        rec.classifier(imgs)
+        wired.batch(imgs)  # warm-up: cuDNN picks its algorithms
+        handles = wired.dispatch(prepped)
+        torch.cuda.synchronize()
+        batches[b] = {
+            "cls_ms_per_table": host_ms(lambda: rec.classifier(imgs), TABLE_TIMED_RUNS) / b,
+            "unet_ms_per_table": host_ms(lambda: wired.batch(imgs), TABLE_TIMED_RUNS) / b,
+            "unet_host_pre_ms_per_table": host_ms(
+                lambda: [wired.preprocess(c) for c in imgs], TABLE_TIMED_RUNS) / b,
+            "unet_device_ms_per_table": cuda_ms(lambda: wired.forward_bits(x), iters=3,
+                                                warmup=1) / b,
+            "unet_host_cells_ms_per_table": host_ms(lambda: wired.finish(imgs, handles),
+                                                    TABLE_TIMED_RUNS) / b,
+        }
+    slanet = {}
+    for bucket in TABLE_SLANET_BUCKETS:
+        x = torch.from_numpy(np.stack([sla.preprocess(c) for c in (crops * 2)[:bucket]])).cuda()
+        sla.run(x)
+        torch.cuda.synchronize()
+        steps = sla.decode_steps
+        t0 = time.perf_counter()
+        sla.run(x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        slanet[bucket] = {"steps": sla.decode_steps - steps,
+                          "ms_per_step": wall * 1e3 / (sla.decode_steps - steps)}
+    # the published UniTable shape (12x768 encoder, 4x768 decoder), bf16,
+    # random weights from seed 0
+    model = UniTableModel(UniTableDims())
+    random_init(model, np.random.default_rng(0))
+    pub = UniTableStructure(model)
+    imgs = crops[:UNITABLE_PUBLISHED_BATCH]
+    pub(imgs, max_len=UNITABLE_MAX_LEN)
+    torch.cuda.synchronize()
+    steps = pub.decode_steps
+    t0 = time.perf_counter()
+    pub_out = pub(imgs, max_len=UNITABLE_MAX_LEN)
+    torch.cuda.synchronize()
+    pub_s = time.perf_counter() - t0
+    pub_steps = pub.decode_steps - steps
+    kernel_ms, traced_ms = device_busy_share(lambda: pub(imgs, max_len=UNITABLE_MAX_LEN))
+    check(len(pub_out) == len(imgs), "table: the published UniTable returned no structure")
+    emit({"phase": "table", "dtype": "bf16", "card": card, "crops": len(crops),
+          "vs_golden_bf16": bf16_vs, "batches": batches, "slanet_buckets": slanet,
+          "unitable_published": {
+              "shape": "12x768 encoder, 4x768 decoder, random weights",
+              "batch": len(imgs), "max_len": UNITABLE_MAX_LEN, "steps": pub_steps,
+              "steps_per_s": pub_steps / pub_s, "ms_per_step": pub_s * 1e3 / pub_steps,
+              "device_busy_share": kernel_ms / traced_ms}})
+
+
+def phase_pipeline_table() -> None:
+    """The fp32 table-on path through RapidDoc on the card, equal to the
+    golden in one window and with one page per window."""
+    import torch
+
+    from rapiddoc_tpu_torch import RapidDoc
+
+    golden, _ = table_assets()
+    pdf = layout_pdf()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for window in (None, 1):
+        _table_env(False, window)
+        got = table_parse_summary(
+            RapidDoc(device="cuda", dtype=torch.float32)(pdf, parse_method="ocr"))
+        want = golden["fp32"]
+        keys = ("markdown", "content_list", "tables", "latex", "images")
+        equal = {k: got[k] == want[k] for k in keys}
+        emit({"phase": "pipeline_table", "dtype": "fp32", "window": window,
+              "equal_to_golden": equal, "vs_golden": compare_table_parse(got, want)})
+        for key, ok in equal.items():
+            check(ok, f"pipeline_table fp32 window {window}: the {key} differs from the golden's")
+
+
+def main_path(card: str) -> dict:
+    """The slice's main path, RapidDoc(device="cuda") with the table stage
+    on, bf16 with the int8 head: timed, its kernel launches counted from
+    0 and held to the rec dispatches and decode steps, its output held to
+    the bf16 int8 golden's bands. Returns the launch counts."""
+    import torch
+
+    from rapiddoc_tpu_torch import RapidDoc
+    from rapiddoc_tpu_torch.bench import STAGES, device_busy_share, table_counts
+    from rapiddoc_tpu_torch.ops.ctc_head import fused_ctc_argmax
+    from rapiddoc_tpu_torch.ops.quant_head import fused_argmax_int8
+    from rapiddoc_tpu_torch.utils.trace import GLOBAL_TRACER
+
+    golden, _ = table_assets()
+    pdf = layout_pdf()
+    _table_env(True)
+    rapid = RapidDoc(device="cuda")
+    rapid(pdf, parse_method="ocr")  # warm-up: cuDNN picks its algorithms
+    torch.cuda.synchronize()
+    analyzer = rapid._stack().analyzer
+    rec, formula = analyzer.ocr.recognizer.session.stats, analyzer.formula_model.stats
+    table0 = table_counts(analyzer.table_model)
+    GLOBAL_TRACER.reset()
+    calls, steps = rec.calls, formula.decode_steps
+    fused_ctc_argmax.launches = 0
+    fused_argmax_int8.launches = 0
+    t0 = time.perf_counter()
+    out = rapid(pdf, parse_method="ocr")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"ctc_head": fused_ctc_argmax.launches, "quant_head": fused_argmax_int8.launches,
+              "rec_dispatches": rec.calls - calls, "decode_steps": formula.decode_steps - steps}
+    tables = {k: v - table0[k] for k, v in table_counts(analyzer.table_model).items()}
+    report = GLOBAL_TRACER.report()
+    pages = len(out.model_json)
+    kernel_ms, traced_ms = device_busy_share(lambda: rapid(pdf, parse_method="ocr"))
+    vs = compare_table_parse(table_parse_summary(out), golden["bf16_int8"])
+    emit({"phase": "main_path", "dtype": "bf16", "int8_head": True, "card": card,
+          "pages": pages, "pages_per_s": pages / wall,
+          "stage_ms_per_page": {k: report[k]["total_s"] * 1e3 / pages
+                                for k in STAGES if k in report},
+          "tables": report.get("table", {}).get("items", 0),
+          "table_counts": tables,
+          "device_busy_share": kernel_ms / traced_ms,
+          "device_kernel_ms_per_page": kernel_ms / pages,
+          "launches": counts, "vs_golden_bf16_int8": vs})
+    for name, per in (("ctc_head", "rec_dispatches"), ("quant_head", "decode_steps")):
+        check(counts[name] > 0, f"main_path launched the {name} kernel no time")
+        check(counts[name] == counts[per],
+              f"main_path: {counts[name]} {name} launches for {counts[per]} {per}")
+    check_table_parse_bf16(vs)
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1313,7 +1656,10 @@ def main() -> int:
         timed("formula_published", phase_formula_published)
         lgolden = layout_golden()
         timed("layout", phase_layout, lgolden, card)
-        counts = timed("pipeline_layout", phase_pipeline_layout, lgolden, card)
+        layout_counts = timed("pipeline_layout", phase_pipeline_layout, lgolden, card)
+        timed("table", phase_table, card)
+        timed("pipeline_table", phase_pipeline_table)
+        counts = timed("main_path", main_path, card)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1332,10 +1678,11 @@ def main() -> int:
         "name": "ctc_head", "route": "cuda",
         "source": "rapiddoc_tpu_torch/csrc/ctc_head.cu",
         "replaces": "rapiddoc_tpu/ops/ctc_head.py:30",
-        # launches: the layout pipeline's bf16 run (this slice's main
+        # launches: the table-on pipeline's bf16 run (this slice's main
         # path), beside the earlier paths' runs
         "launches": counts["ctc_head"],
-        "launches_by_path": {"pipeline_layout": counts["ctc_head"], "pipeline": launches,
+        "launches_by_path": {"main_path": counts["ctc_head"],
+                             "pipeline_layout": layout_counts["ctc_head"], "pipeline": launches,
                              "ocr": ocr_launches},
         "max_abs_err": k1["max_abs_err"],
         "max_rel_err": k1["max_rel_err"], "matches_plain": True,
@@ -1344,14 +1691,16 @@ def main() -> int:
         "library_ms": k1["library_ms"], "shape": [k1["n"], k1["c"], k1["v"]],
         "shapes": shapes(k1_all),
     }, {
-        # launches: the layout pipeline's bf16 int8-head run (this
-        # slice's main path), beside the formula phase's; times at the
+        # launches: the table-on pipeline's bf16 int8-head run (this
+        # slice's main path), beside the earlier paths'; times at the
         # published width, L2 flushed before each launch
         "name": "quant_head", "route": "cuda",
         "source": "rapiddoc_tpu_torch/csrc/quant_head.cu",
         "replaces": "rapiddoc_tpu/ops/quant_head.py:50",
         "launches": counts["quant_head"],
-        "launches_by_path": {"pipeline_layout": counts["quant_head"], "formula": k2_launches},
+        "launches_by_path": {"main_path": counts["quant_head"],
+                             "pipeline_layout": layout_counts["quant_head"],
+                             "formula": k2_launches},
         "max_abs_err": k2["max_abs_err"],
         "max_rel_err": k2["max_rel_err"], "matches_plain": True,
         "ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"],

@@ -5,11 +5,15 @@ Port of ``rapiddoc_tpu/api.py`` (``RapidDoc.__call__``, ``_parse_single``,
 ``_embed_data_uris``) for the path the port runs so far: PDF documents
 in ``parse_method="ocr"`` (or "txt" / "auto") with the layout model (the
 demo checkpoint under ``RAPIDDOC_DEMO_LAYOUT=1``, else the fallback
-layout), OCR and the formula recognizer, and the table stage disabled
-(``RAPIDDOC_DISABLE_TABLE=1``). The window loop, its render-ahead and
-assembly threads, the ``DeferredAR`` packing of formula regions across
-windows (when there is more than one window and no checkpoint dir: the
-windows that wait for a flush are assembled after it, in order) and the
+layout), OCR, the formula recognizer and the table recognizer
+(``table_config`` reaches ``TableRecognizer.build``: ``strategy``
+``unet_slanet_plus`` by default or ``unet_unitable``,
+``wireless_max_len``, ``use_img2table``, ``use_compare_table``; the
+stage is off with ``table_enable=False`` or ``RAPIDDOC_DISABLE_TABLE=1``).
+The window loop, its render-ahead and assembly threads, the
+``DeferredAR`` packing of formula and table regions across windows
+(when there is more than one window and no checkpoint dir: the windows
+that wait for a flush are assembled after it, in order) and the
 outputs are the JAX package's; the port adds its ``device`` (the card by
 default) and ``dtype`` (bf16 by default) arguments. Windows render
 serially (the JAX package's process pool renders the same pages).
@@ -96,7 +100,8 @@ class ModelStack:
     _ENV_KEYS = (
         "DISABLE_OCR", "DISABLE_LAYOUT", "DISABLE_FORMULA", "DISABLE_TABLE",
         "DEMO_LAYOUT", "MODELS_DIR", "CONTRAST_STRETCH",
-        "USE_DOC_ORIENTATION_CLASSIFY",
+        "USE_DOC_ORIENTATION_CLASSIFY", "RGB_TRANSFER", "DET_WIRE_BITS",
+        "DET_PROB_BITS", "REC_WIRE_BITS", "LAYOUT_WIRE_BITS", "UNET_WIRE_BITS",
     )
 
     @classmethod

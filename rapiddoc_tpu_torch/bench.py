@@ -14,25 +14,25 @@ OCR-only form (layout, formula and table disabled,
 
 ``--corpus layout`` is the counterpart of ``bench.py``'s
 ``_composite_corpus_pdf`` for the page kinds this repository holds, with
-``RAPIDDOC_DEMO_LAYOUT=1 RAPIDDOC_DISABLE_TABLE=1``: in equal thirds, in
-this order, the formula_dense and the table_heavy pages of
+``RAPIDDOC_DEMO_LAYOUT=1`` and every stage on, as the JAX bench's
+headline (layout, OCR, formula and table, demo checkpoints): in equal
+thirds, in this order, the formula_dense and the table_heavy pages of
 ``assets/layout_smoke_doc.pdf`` and the synth-text pages of
-``ocr_smoke_doc.pdf``, each kind's streams repeated. The layout model,
-OCR and the formula recognizer run; unlike the JAX bench's headline the
-table stage is disabled (it is not ported), and the JAX headline's real
-English and CJK pages are not in the repository. ``--int8-head`` sets
-``RAPIDDOC_INT8_HEAD=1``, which sends every formula decode step through
-kernel K2.
+``ocr_smoke_doc.pdf``, each kind's streams repeated. The JAX headline's
+real English and CJK pages are not in the repository. ``--int8-head``
+sets ``RAPIDDOC_INT8_HEAD=1``, which sends every formula decode step
+through kernel K2.
 
 One warm-up pass, two timed passes, then one pass under
 ``torch.profiler`` for the device's busy share (kernel time over wall
 time; not counted in pages/s). Prints the card's name and power limit,
 then one JSON line with ``bench.py``'s keys: ``pages_per_sec`` (and each
 run's), ``stage_ms_per_page`` (render, layout, ocr_det, ocr_crop,
-ocr_rec, formula, assembly, assembly_final, and ocr, which holds det,
-crop and rec), ``ocr_rec_detail`` (crops, session calls, crops/s, K1
+ocr_rec, formula, table, assembly, assembly_final, and ocr, which holds
+det, crop and rec), ``ocr_rec_detail`` (crops, session calls, crops/s, K1
 launches), ``formula_detail`` (regions, decode dispatches and steps, K2
-launches) and ``device_busy_share``. On the CPU (``--device cpu``) it
+launches), ``table_detail`` (tables, UNet calls and crops, SLANet and
+UniTable decode dispatches and steps) and ``device_busy_share``. On the CPU (``--device cpu``) it
 runs the same path for rehearsal and reports no device numbers.
 """
 from __future__ import annotations
@@ -50,7 +50,7 @@ ASSETS = Path(__file__).resolve().parent / "assets"
 PDF = ASSETS / "ocr_smoke_doc.pdf"
 LAYOUT_PDF = ASSETS / "layout_smoke_doc.pdf"
 STAGES = ("render", "layout", "ocr_det", "ocr_crop", "ocr_rec", "ocr", "formula",
-          "assembly", "assembly_final")
+          "table", "assembly", "assembly_final")
 # layout_smoke_doc.pdf's pages by kind (tests/test_torch_pipeline_layout.py)
 LAYOUT_KINDS = {"formula_dense": (0, 1), "table_heavy": (2, 3)}
 
@@ -131,14 +131,13 @@ def corpus_pdf(corpus: str, n_pages: int) -> tuple[bytes, dict[str, int]]:
 
 def set_corpus_env(corpus: str, int8_head: bool) -> None:
     """The stage switches of the corpus: OCR only, or the demo layout with
-    the formula stage and no table."""
+    the formula and table stages."""
     if corpus == "ocr":
         for k in ("LAYOUT", "FORMULA", "TABLE"):
             os.environ.setdefault(f"RAPIDDOC_DISABLE_{k}", "1")
     else:
-        for k in ("LAYOUT", "FORMULA"):
+        for k in ("LAYOUT", "FORMULA", "TABLE"):
             os.environ.pop(f"RAPIDDOC_DISABLE_{k}", None)
-        os.environ["RAPIDDOC_DISABLE_TABLE"] = "1"
         os.environ["RAPIDDOC_DEMO_LAYOUT"] = "1"
     if int8_head:
         os.environ["RAPIDDOC_INT8_HEAD"] = "1"
@@ -168,6 +167,22 @@ def device_busy_share(fn) -> tuple[float, float]:
     return kernel_us / 1e3, wall * 1e3
 
 
+def table_counts(table) -> dict[str, int]:
+    """The table models' counters: the classifier's crops, the UNet's
+    dispatches and crops, the wireless model's decode dispatches and
+    steps (under its name)."""
+    if table is None:
+        return {}
+    out = {}
+    if table.wired is not None:
+        out.update(unet_calls=table.wired.calls, unet_crops=table.wired.items)
+    if table.wireless is not None:
+        name = table.wireless.name
+        out.update({f"{name}_dispatches": table.wireless.calls,
+                    f"{name}_decode_steps": table.wireless.decode_steps})
+    return out
+
+
 def run(n_pages: int, device: str, dtype: torch.dtype, runs: int = 2,
         corpus: str = "ocr", int8_head: bool = False) -> dict:
     set_corpus_env(corpus, int8_head)
@@ -193,12 +208,14 @@ def run(n_pages: int, device: str, dtype: torch.dtype, runs: int = 2,
     analyzer = doc._stack().analyzer
     rec = analyzer.ocr.recognizer.session.stats
     formula = analyzer.formula_model.stats if analyzer.formula_model is not None else None
+    table = analyzer.table_model
     walls = []
     for _ in range(runs):
         GLOBAL_TRACER.reset()
         crops0, calls0, launches0 = rec.items, rec.calls, fused_ctc_argmax.launches
         k2_0 = fused_argmax_int8.launches
         f0 = (formula.dispatches, formula.decode_steps) if formula else (0, 0)
+        t0_table = table_counts(table)
         t0 = time.perf_counter()
         out = parse()
         walls.append(time.perf_counter() - t0)
@@ -231,6 +248,11 @@ def run(n_pages: int, device: str, dtype: torch.dtype, runs: int = 2,
             "decode_steps": formula.decode_steps - f0[1],
             "int8_head": bool(os.environ.get("RAPIDDOC_INT8_HEAD")),
             "quant_head_launches": fused_argmax_int8.launches - k2_0,
+        }
+    if table is not None:
+        result["table_detail"] = {
+            "tables": report.get("table", {}).get("items", 0),
+            **{k: v - t0_table[k] for k, v in table_counts(table).items()},
         }
     if cuda:
         kernel_ms, wall_ms = device_busy_share(parse)

@@ -73,6 +73,11 @@ def get_models_dir() -> Path:
     return Path.home() / ".cache" / "rapiddoc_tpu" / "models"
 
 
+# the in-repo demo checkpoints, read in place as data files from the JAX
+# package's asset directory
+DEMO_ASSETS_DIR = Path(__file__).resolve().parents[1] / "rapiddoc_tpu" / "assets"
+
+
 def get_pdf_render_dpi() -> int:
     return env_int("PDF_RENDER_DPI", 200)
 

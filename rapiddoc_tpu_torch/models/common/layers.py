@@ -24,6 +24,7 @@ def act_fn(name: str | None) -> Callable[[torch.Tensor], torch.Tensor]:
         "relu": F.relu,
         "gelu": F.gelu,  # erf form, as jax.nn.gelu(approximate=False)
         "silu": F.silu,
+        "hardswish": F.hardswish,  # x * relu6(x + 3) / 6, as jax.nn.hard_swish
     }
     if name not in table:
         raise ValueError(f"unknown activation {name!r}")
@@ -176,17 +177,19 @@ class MHSA(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-norm transformer block (LightSVTR flavor: SiLU MLP, LayerNorm
-    eps 1e-6)."""
+    """Pre-norm transformer block (LightSVTR flavor by default: SiLU MLP,
+    LayerNorm eps 1e-6; UniTable's encoder takes exact GELU and 1e-5)."""
 
-    def __init__(self, dim: int, num_heads: int = 8, mlp_ratio: float = 4.0):
+    def __init__(self, dim: int, num_heads: int = 8, mlp_ratio: float = 4.0,
+                 act: str = "silu", ln_eps: float = 1e-6):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm1 = nn.LayerNorm(dim, eps=ln_eps)
         self.attn = MHSA(dim, num_heads)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm2 = nn.LayerNorm(dim, eps=ln_eps)
         self.fc1 = nn.Linear(dim, int(dim * mlp_ratio))
         self.fc2 = nn.Linear(int(dim * mlp_ratio), dim)
+        self.act = act_fn(act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.norm1(x))
-        return x + self.fc2(F.silu(self.fc1(self.norm2(x))))
+        return x + self.fc2(self.act(self.fc1(self.norm2(x))))

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...engine.done_flag import DoneFlag
 from ...ops.quant_head import fused_argmax_int8
 
 POS_OFFSET = 2  # MBart learned-position offset
@@ -201,13 +202,9 @@ def greedy_decode(
 
     Early exit. A row is done once it has emitted EOS; the loop stops
     when every row (padded rows included) is done, or at max_len. On the
-    card the test of ``done.all()`` is read one step late: step s copies
-    its flag to pinned host memory without waiting, and the host reads
-    it after it has queued step s + 1, so the device never idles on the
-    host's read and the loop runs at most one step more than the JAX
-    loop. That extra step changes nothing: every row is done, so it
-    writes pad where pad already stands and leaves lengths as they are.
-    On the CPU the flag is read at once."""
+    card ``DoneFlag`` reads the test one step late, and the loop may run
+    one step more than the JAX loop: every row is done then, so it
+    writes pad where pad already stands and leaves lengths as they are."""
     cfg = decoder.cfg
     b = memory.shape[0]
     hd = cfg.d_model // cfg.heads
@@ -223,11 +220,7 @@ def greedy_decode(
     if int8_head is not None:
         wq_head, head_scale = int8_head
         head_bias = torch.zeros((cfg.vocab_size,), dtype=torch.float32, device=dev)
-    on_card = dev.type == "cuda"
-    if on_card:
-        flags = torch.empty((2,), dtype=torch.bool, pin_memory=True)
-        events = (torch.cuda.Event(), torch.cuda.Event())
-        pending = None
+    flag = DoneFlag(dev)
     steps = 0
     for step in range(max_len):
         out, _, _ = decoder(cur, caches_k, caches_v, step, mem_k, mem_v, mem_mask,
@@ -242,15 +235,6 @@ def greedy_decode(
         done = done | (nxt == cfg.eos_token_id)
         cur = nxt[:, None]
         steps += 1
-        if on_card:
-            slot = step % 2
-            flags[slot].copy_(done.all(), non_blocking=True)
-            events[slot].record()
-            if pending is not None:
-                events[pending].synchronize()
-                if bool(flags[pending]):
-                    break
-            pending = slot
-        elif bool(done.all()):
+        if flag.finished(done):
             break
     return tokens, lengths, steps

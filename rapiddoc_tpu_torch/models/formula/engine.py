@@ -18,15 +18,13 @@ from typing import Callable
 
 import numpy as np
 import torch
-from torch import nn
 
 from ...engine.buckets import batch_chunks, pad_rows
 from ...engine.session import resolve_device
 from ...ops.layout import aligned_rows
 from ...ops.quant_head import fused_argmax_int8, quantize_weight_int8
-from ..common.layers import BatchNorm
 from ..ocr.pre_post import resize_linear, rgb_to_gray
-from ..weights import load_flax_into, subtree
+from ..weights import load_flax_into, random_init, subtree
 from .decoder import greedy_decode
 from .model import build_formula_modules
 
@@ -139,35 +137,6 @@ class FormulaStats:
     dispatches: int = 0
     decode_steps: int = 0
     realized_steps: int = 0
-
-
-def random_init(module: nn.Module, rng: np.random.Generator) -> None:
-    """Random weights from a numpy generator: 1/sqrt(fan_in) normals for
-    convolutions, dense layers and embeddings, N(0, 0.02) learned
-    positions, zero biases, identity norms, BatchNorm statistics and LAB
-    affines. It does not reproduce JAX's initializer bits."""
-
-    def normal(t: torch.Tensor, std: float) -> None:
-        t.copy_(torch.from_numpy(
-            (rng.standard_normal(tuple(t.shape), dtype=np.float32) * np.float32(std))
-        ))
-
-    with torch.no_grad():
-        for mod in module.modules():
-            if isinstance(mod, nn.Conv2d):
-                fan_in = mod.weight[0].numel()
-                normal(mod.weight, fan_in ** -0.5)
-            elif isinstance(mod, nn.Linear):
-                normal(mod.weight, mod.in_features ** -0.5)
-                if mod.bias is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, nn.Embedding):
-                normal(mod.weight, mod.embedding_dim ** -0.5)
-            elif isinstance(mod, (nn.LayerNorm, BatchNorm)):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
-            if hasattr(mod, "embed_positions"):
-                normal(mod.embed_positions, 0.02)
 
 
 class FormulaRecognizer:

@@ -7,7 +7,7 @@ Port of ``rapiddoc_tpu/models/layout/engine.py``: ``DOCLAYOUT_V2_LABELS``,
 to the model's square input with ``resize_cubic`` (cv2's INTER_CUBIC),
 sent as 4-bit luma (two pixels a byte) and unpacked on the device, as
 the JAX package's default nibble wire does (its
-``RAPIDDOC_LAYOUT_WIRE_BITS=8`` RGB wire is not ported). The
+``RAPIDDOC_LAYOUT_WIRE_BITS=8`` RGB wire is not ported and raises). The
 postprocess (per-class thresholds, NMS with separate same-class and
 cross-class IoU, masks to polygons) is the JAX package's, with cv2's
 contour functions replaced by ``utils/contours.py``.
@@ -26,14 +26,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ...config import get_models_dir
+from ...config import DEMO_ASSETS_DIR, get_models_dir
 from ...engine.buckets import BucketSpec
 from ...engine.session import TorchSession
 from ...types import CategoryId
 from ...utils import boxes as B
 from ...utils import contours
 from ...utils.logging import get_logger
-from ...utils.unported import not_ported
+from ...utils.unported import check_knob, not_ported
 from ..ocr.pre_post import pack_nibbles, resize_cubic, to_luma
 from ..weights import load_flax_into, load_npz
 from .rtdetr import RTDETR
@@ -180,6 +180,9 @@ class LayoutDetector:
                  *, device=None, dtype: torch.dtype | None = None, seed: int = 0):
         """``model`` with its weights loaded, or None for a random init
         from ``seed`` (torch's default initialisers)."""
+        # the JAX package's RAPIDDOC_LAYOUT_WIRE_BITS=8 RGB wire
+        # (layout/engine.py:172-178); the port runs the 4-bit luma wire
+        check_knob("RAPIDDOC_LAYOUT_WIRE_BITS", "the layout's 8-bit RGB wire", "layout", "4")
         self.config = cfg = config or LayoutConfig()
         self.labels = DOCLAYOUT_V2_LABELS
         if model is None:
@@ -208,8 +211,6 @@ class LayoutDetector:
         ``configs["demo_layout"]``) asks for it, else FileNotFoundError
         (the caller's structural fallback layout) unless
         ``allow_random_init``."""
-        from ..registry import DEMO_ASSETS_DIR
-
         models_dir = get_models_dir()
         model_type = configs.get("model_type", "pp_doclayoutv3")
         model_type = getattr(model_type, "value", model_type)

@@ -17,6 +17,7 @@ import torch
 
 from ...engine.buckets import DET_BUCKETS, REC_BUCKETS, group_by_bucket, pad_image_to
 from ...engine.session import TorchSession
+from ...utils.unported import check_knob
 from .det import DBNet
 from .pre_post import (
     CTCLabelDecoder,
@@ -70,6 +71,11 @@ class TextDetector:
     limit_side_len = 960
 
     def __init__(self, model: DBNet, *, device=None, dtype: torch.dtype | None = None):
+        # the JAX package's wire knobs (ocr/engine.py:106-116); the port
+        # runs the default 4-bit luma wire and 4-bit prob map only
+        check_knob("RAPIDDOC_RGB_TRANSFER", "the RGB det and rec wire", "ocr_family")
+        check_knob("RAPIDDOC_DET_WIRE_BITS", "the 8-bit det wire", "ocr_family", "4")
+        check_knob("RAPIDDOC_DET_PROB_BITS", "the 8-bit det prob map", "ocr_family", "4")
         self.post_params = DBPostParams()
         thresh = self.post_params.thresh
 
@@ -194,6 +200,9 @@ class TextRecognizer:
 
     def __init__(self, model: SVTRRec, decoder: CTCLabelDecoder, *,
                  device=None, dtype: torch.dtype | None = None):
+        # the JAX package's wire knobs (ocr/engine.py:390-398)
+        check_knob("RAPIDDOC_RGB_TRANSFER", "the RGB det and rec wire", "ocr_family")
+        check_knob("RAPIDDOC_REC_WIRE_BITS", "the 8-bit rec wire", "ocr_family", "4")
         self.decoder = decoder
         self.session = TorchSession(
             lambda m, x: m(x), model, REC_BUCKETS, name="ocr_rec",

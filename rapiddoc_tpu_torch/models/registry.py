@@ -15,14 +15,16 @@ backbone and neck.
 ``formula_demo.npz`` + ``formula_demo.json`` (PPHGNetV2-B0 encoder, a
 2-layer MBart decoder at the published widths, 57 tokens).
 
-``build_layout_model``, ``build_formula_model`` and ``build_analyzer``
-are the JAX package's (``registry.py:161-260``): the layout detector
-(``LayoutDetector.build``: a published npz, or the demo checkpoint under
-``RAPIDDOC_DEMO_LAYOUT``) or None where its checkpoint is missing, the
-formula recognizer, the OCR system and the document analyzer around
-them. The table stage, orientation, checkboxes, custom models, other
-languages and published OCR checkpoints raise NotImplementedError
-naming their ROADMAP item.
+``build_layout_model``, ``build_formula_model``, ``build_table_model``
+and ``build_analyzer`` are the JAX package's (``registry.py:161-260``):
+the layout detector (``LayoutDetector.build``: a published npz, or the
+demo checkpoint under ``RAPIDDOC_DEMO_LAYOUT``) or None where its
+checkpoint is missing, the formula recognizer, the table recognizer
+(``TableRecognizer.build``: the demo checkpoints, no OCR system inside
+tables), the OCR system and the document analyzer around them.
+Orientation, checkboxes, custom models, other languages, published OCR
+checkpoints and the OCR and layout knobs the port runs only at their
+defaults raise NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..config import env_bool, get_models_dir
+from ..config import DEMO_ASSETS_DIR, env_bool, get_models_dir
 from ..pipeline.scheduler import DocumentAnalyzer
 from ..utils.logging import get_logger
 from ..utils.unported import not_ported
@@ -44,9 +46,9 @@ from .ocr.det import DBNet
 from .ocr.engine import TextDetector, TextRecognizer, TextSystem
 from .ocr.pre_post import CTCLabelDecoder
 from .ocr.rec import SVTRRec
+from .table.engine import TableRecognizer
 from .weights import load_flax_into, load_npz
 
-DEMO_ASSETS_DIR = Path(__file__).resolve().parents[2] / "rapiddoc_tpu" / "assets"
 PUBLISHED_DICT = DEMO_ASSETS_DIR / "ppocrv6_small_dict.txt"
 
 # printable ASCII without space (space is the implicit final vocab entry
@@ -136,6 +138,14 @@ def build_formula_model(configs: dict | None = None, device=None,
     return build_formula_recognizer(device=device, dtype=dtype)
 
 
+def build_table_model(configs: dict | None = None, device=None,
+                      dtype: torch.dtype | None = None) -> TableRecognizer | None:
+    """The table recognizer, or None under RAPIDDOC_DISABLE_TABLE."""
+    if os.environ.get("RAPIDDOC_DISABLE_TABLE"):
+        return None
+    return TableRecognizer.build(configs or {}, device=device, dtype=dtype)
+
+
 def build_analyzer(
     lang: str = "ch",
     formula_enable: bool = True,
@@ -146,12 +156,11 @@ def build_analyzer(
 ) -> DocumentAnalyzer:
     """The document analyzer on ``device`` (the card by default) in
     ``dtype`` (bf16 by default): the layout detector, the OCR system and
-    the formula recognizer as the JAX package builds them. Raises
-    NotImplementedError, naming its ROADMAP item, where the JAX package
-    would build a stage the port does not have yet: the table stage when
-    enabled unless RAPIDDOC_DISABLE_TABLE is set, custom models,
-    orientation, checkboxes, other languages and published OCR
-    checkpoints."""
+    the formula and table recognizers as the JAX package builds them.
+    Raises NotImplementedError, naming its ROADMAP item, where the JAX
+    package would build a stage the port does not have yet: custom
+    models, orientation, checkboxes, other languages, published OCR
+    checkpoints and the knobs the port runs only at their defaults."""
     configs = configs or {}
     for stage, cfg in configs.items():
         if isinstance(cfg, dict) and (
@@ -164,8 +173,6 @@ def build_analyzer(
             )
         if isinstance(cfg, dict) and cfg.get("custom_model") is not None:
             raise not_ported(f"a custom {stage} model", "host_families")
-    if table_enable and not os.environ.get("RAPIDDOC_DISABLE_TABLE"):
-        raise not_ported("the table stage (set RAPIDDOC_DISABLE_TABLE=1)", "table")
     if env_bool("USE_DOC_ORIENTATION_CLASSIFY") or os.environ.get(
         "USE_DOC_ORIENTATION_CLASSIFY", ""
     ).lower() in ("1", "true", "yes"):
@@ -189,7 +196,9 @@ def build_analyzer(
     layout = build_layout_model(configs.get("layout"), device=device, dtype=dtype)
     formula = (build_formula_model(configs.get("formula"), device=device, dtype=dtype)
                if formula_enable else None)
+    table = (build_table_model(configs.get("table"), device=device, dtype=dtype)
+             if table_enable else None)
     return DocumentAnalyzer(
-        layout_model=layout, ocr_system=ocr, formula_model=formula,
+        layout_model=layout, ocr_system=ocr, formula_model=formula, table_model=table,
         formula_enable=formula_enable, table_enable=table_enable,
     )

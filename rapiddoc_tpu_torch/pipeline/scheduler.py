@@ -1,25 +1,32 @@
-"""Batch inference scheduler: pages -> layout dets (+OCR/formula fills).
+"""Batch inference scheduler: pages -> layout dets (+OCR/formula/table fills).
 
-Port of ``rapiddoc_tpu/pipeline/scheduler.py`` without the table stage:
-① the layout model (``demo_txt_fallback`` routes txt-mode pages of a
-demo-trained detector to the structural fallback) or, for pages without
-one, the structural fallback layout (native text blocks and image
-placements become dets); ② full-page OCR (``_run_page_ocr``: det on the
-whole page with formula regions whitened, crop, rec with the fused CTC
-head); ③ the formula recognizer on the layout's formula regions, or
-their collection into a ``DeferredAR`` that the facade flushes in full
-decode buckets across page windows; ⑤ ``_recover_missed_text``, a
-focused rec pass over layout text regions the page-level det missed.
-The helpers are the JAX package's code, unchanged.
+Port of ``rapiddoc_tpu/pipeline/scheduler.py``: ① the layout model
+(``demo_txt_fallback`` routes txt-mode pages of a demo-trained detector
+to the structural fallback) or, for pages without one, the structural
+fallback layout (native text blocks and image placements become dets);
+② full-page OCR (``_run_page_ocr``: det on the whole page with formula
+regions whitened, crop, rec with the fused CTC head); ③ the formula
+recognizer on the layout's formula regions; ④ the table recognizer on
+the layout's table regions, with the recognized formulas inside each
+table and uuid placeholders for the images inside it; ⑤
+``_recover_missed_text``, a focused rec pass over layout text regions
+the page-level det missed. Formula and table regions can instead be
+collected into a ``DeferredAR`` that the facade flushes in full decode
+buckets across page windows (formulas first, so that tables get the
+LaTeX of the formulas inside them). The helpers are the JAX package's
+code, unchanged.
 
 Not ported yet, and raising NotImplementedError with its ROADMAP item
-where the JAX package would run it: orientation, checkbox detection,
-table recognition (with ``DeferredAR``'s table half) and seal OCR.
+where the JAX package would run it: orientation, checkbox detection
+and seal OCR.
 
-One difference of policy: rec runs as one call, without the JAX
+Two differences of policy. Rec runs as one call, without the JAX
 package's ``_rec_with_fallback`` (a failed batch retried crop by crop,
 each failed crop an empty low-score text), in ``_run_page_ocr`` and in
-``_recover_missed_text``. What fails there is the card or a compiled
+``_recover_missed_text``. The table model is called with its formula
+and image items, without the JAX package's retry without them on a
+TypeError (a custom table model raises NotImplementedError in the port,
+``models/registry.py``). What fails there is the card or a compiled
 piece (a kernel that does not build, load or launch), and that is an
 error, never an empty text.
 """
@@ -27,6 +34,7 @@ from __future__ import annotations
 
 import re as _re
 import threading
+import uuid
 from typing import Sequence
 
 import numpy as np
@@ -243,33 +251,41 @@ def _split_math_bands(block: dict) -> list[tuple[str, list[dict]]]:
 
 
 class DeferredAR:
-    """Doc-scope accumulator of formula regions collected across page
-    windows (the JAX package's, ``scheduler.py:283-318``, without its
-    table half, which comes with the table stage).
+    """Doc-scope accumulator for autoregressive work (formula LaTeX,
+    table structure) collected across page windows (the JAX package's,
+    ``scheduler.py:283-318``).
 
     AR decode throughput is set by batch occupancy: a 16-slot decode
     bucket running 2 regions wastes 7/8 of every step. Windows usually
     contribute 0-4 regions each, so regions are pooled here and decoded
-    when a full bucket accumulates (or at the end of the document)."""
+    when full buckets accumulate (or at the end of the document)."""
 
-    # full decode bucket size (models/formula/engine.py batch_chunks
-    # sizes=(4, 16))
+    # full decode bucket sizes (models/formula/engine.py batch_chunks
+    # sizes=(4, 16); table engines bucket similarly)
     FORMULA_FLUSH = 16
+    TABLE_FLUSH = 8
 
     def __init__(self) -> None:
         # (crop, owner_det)
         self.formula: list[tuple[np.ndarray, dict]] = []
-        self._mark = 0
+        # (crop, owner_det, [(coords, formula_det)], [(coords, uuid)])
+        self.table: list[tuple] = []
+        self._mark = (0, 0)
 
     def window_added(self) -> int:
         """Items contributed since the previous call (lets the caller
         fast-path windows with no AR work)."""
-        added = len(self.formula) - self._mark
-        self._mark = len(self.formula)
+        added = (len(self.formula) - self._mark[0]) + (
+            len(self.table) - self._mark[1]
+        )
+        self._mark = (len(self.formula), len(self.table))
         return added
 
     def should_flush(self) -> bool:
-        return len(self.formula) >= self.FORMULA_FLUSH
+        return (
+            len(self.formula) >= self.FORMULA_FLUSH
+            or len(self.table) >= self.TABLE_FLUSH
+        )
 
 
 class DocumentAnalyzer:
@@ -286,14 +302,12 @@ class DocumentAnalyzer:
         table_enable: bool = True,
         checkbox_enable: bool = False,
     ):
-        if table_model is not None:
-            raise not_ported("the table stage", "table")
         if orientation_model is not None:
             raise not_ported("the orientation classifier", "orientation_seal")
         self.layout_model = layout_model
         self.ocr = ocr_system
         self.formula_model = formula_model
-        self.table_model = None
+        self.table_model = table_model
         self.orientation_model = None
         self.formula_enable = formula_enable
         self.table_enable = table_enable
@@ -388,6 +402,10 @@ class DocumentAnalyzer:
         # ③ formulas
         if self.formula_enable and self.formula_model is not None:
             self._run_formulas(page_images, model_infos, deferred)
+
+        # ④ tables
+        if self.table_enable and self.table_model is not None:
+            self._run_tables(page_images, model_infos, deferred)
 
         # ⑤ leftover text recovery: layout Text regions the page-level
         # det missed entirely get a focused rec pass
@@ -662,12 +680,132 @@ class DocumentAnalyzer:
 
     def flush_deferred(self, deferred: DeferredAR) -> None:
         with self._lock:
-            if deferred.formula:
-                regions = [r for r, _ in deferred.formula]
-                owners = [o for _, o in deferred.formula]
-                with stage_timer("formula", len(regions)):
-                    latexes = self.formula_model.batch_predict(regions)
-                for det, latex in zip(owners, latexes):
-                    det["latex"] = latex
-                deferred.formula.clear()
-            deferred.window_added()  # reset the mark
+            self._flush_deferred_impl(deferred)
+
+    def _flush_deferred_impl(self, deferred: DeferredAR) -> None:
+        """Decode every accumulated AR region in packed buckets.
+
+        Formulas first (tables inject recognized in-table formulas via
+        mfd items), then tables."""
+        if deferred.formula:
+            regions = [r for r, _ in deferred.formula]
+            owners = [o for _, o in deferred.formula]
+            with stage_timer("formula", len(regions)):
+                latexes = self.formula_model.batch_predict(regions)
+            for det, latex in zip(owners, latexes):
+                det["latex"] = latex
+            deferred.formula.clear()
+        if deferred.table:
+            regions = [t[0] for t in deferred.table]
+            owners = [t[1] for t in deferred.table]
+            mfd_items = [
+                [(coords, f_det["latex"])
+                 for coords, f_det in t[2] if f_det.get("latex")]
+                for t in deferred.table
+            ]
+            fill_items = [t[3] for t in deferred.table]
+            with stage_timer("table", len(regions)):
+                htmls = self.table_model.batch_predict(
+                    regions, mfd_items=mfd_items, fill_items=fill_items
+                )
+            for det, html in zip(owners, htmls):
+                if html:
+                    det["html"] = html
+            deferred.table.clear()
+        deferred.window_added()  # reset the mark
+
+    # ----------------------------------------------------------- table
+
+    def _run_tables(
+        self, page_images, model_infos, deferred: DeferredAR | None = None
+    ) -> None:
+        formula_cats = (
+            CategoryId.InterlineEquation_Layout,
+            CategoryId.InterlineEquation_YOLO,
+            CategoryId.InlineEquation,
+        )
+        regions = []
+        owners = []
+        # (coords, formula_det) pairs per table — resolved to (coords,
+        # latex) at predict time, so deferred formulas (decoded later,
+        # flush_deferred) still inject correctly
+        mfd_refs: list[list[tuple[list[float], dict]]] = []
+        fill_items: list[list[tuple[list[float], str]]] = []
+        for page_i, info in enumerate(model_infos):
+            formulas = [
+                d for d in info["layout_dets"]
+                if d["category_id"] in formula_cats
+                and (d.get("latex") or deferred is not None)
+            ]
+            images = [
+                d for d in info["layout_dets"]
+                if d["category_id"] == CategoryId.ImageBody
+            ]
+            for det in info["layout_dets"]:
+                if det["category_id"] == CategoryId.TableBody and not det.get("html"):
+                    x0, y0, _, _, x1, y1, _, _ = det["poly"]
+                    crop = page_images[page_i][
+                        max(int(y0), 0) : int(y1) + 1, max(int(x0), 0) : int(x1) + 1
+                    ]
+                    if not crop.size:
+                        continue
+                    regions.append(crop)
+                    owners.append(det)
+                    # recognized formulas inside this table, in crop coords
+                    # (reference: rapid_table.py:180-213 in-table formula
+                    # injection via mfd_res)
+                    inside = []
+                    for f in formulas:
+                        fx0 = min(f["poly"][0::2])
+                        fy0 = min(f["poly"][1::2])
+                        fx1 = max(f["poly"][0::2])
+                        fy1 = max(f["poly"][1::2])
+                        if fx0 >= x0 and fy0 >= y0 and fx1 <= x1 and fy1 <= y1:
+                            inside.append(
+                                ([fx0 - x0, fy0 - y0, fx1 - x0, fy1 - y0], f)
+                            )
+                    mfd_refs.append(inside)
+                    # in-table images become uuid placeholders resolved to
+                    # <img> at save time (reference: rapid_table.py
+                    # fill_image_res + pdf_image_tools.save_table_fill_image)
+                    fills = []
+                    det_fills = []
+                    for im in images:
+                        ix0 = min(im["poly"][0::2])
+                        iy0 = min(im["poly"][1::2])
+                        ix1 = max(im["poly"][0::2])
+                        iy1 = max(im["poly"][1::2])
+                        if ix0 >= x0 and iy0 >= y0 and ix1 <= x1 and iy1 <= y1:
+                            uid = uuid.uuid4().hex
+                            fills.append(
+                                ([ix0 - x0, iy0 - y0, ix1 - x0, iy1 - y0],
+                                 uid)
+                            )
+                            det_fills.append(
+                                {"uuid": uid, "bbox": [ix0, iy0, ix1, iy1]}
+                            )
+                            im["in_table"] = True
+                    fill_items.append(fills)
+                    if det_fills:
+                        det["fill_images"] = det_fills
+        if not regions:
+            return
+        if deferred is not None:
+            # copy the crops: region views would pin whole page arrays
+            # in memory until the flush
+            deferred.table.extend(
+                (np.array(r, copy=True), o, m, fl)
+                for r, o, m, fl in zip(regions, owners, mfd_refs, fill_items)
+            )
+            return
+        mfd_items = [
+            [(coords, f["latex"]) for coords, f in refs if f.get("latex")]
+            for refs in mfd_refs
+        ]
+        with stage_timer("table", len(regions)):
+            htmls = self.table_model.batch_predict(
+                regions, mfd_items=mfd_items, fill_items=fill_items
+            )
+        for det, html in zip(owners, htmls):
+            if html:
+                det["html"] = html

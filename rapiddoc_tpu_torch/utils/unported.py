@@ -7,12 +7,14 @@ left blank in its place.
 """
 from __future__ import annotations
 
+import os
+
 # ROADMAP.md, Queue 1: item number and title of each item the port
 # raises for
 ITEMS = {
     "small_resize": (5, "PIL-BILINEAR resize of small placed images"),
     "ocr_family": (7, "the rest of the OCR family"),
-    "table": (10, "table"),
+    "layout": (8, "layout"),
     "orientation_seal": (11, "orientation and seal"),
     "pdfio": (12, "the rest of pdfio/ and pipeline/"),
     "sniff": (13, "ONNX interpreter and sniffing"),
@@ -28,3 +30,14 @@ def not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP Queue 1 item {number}: {title})"
     )
+
+
+def check_knob(name: str, what: str, item: str, default: str | None = None) -> None:
+    """Raise ``not_ported`` where the environment moves a knob of the JAX
+    package that changes its numbers and that the port runs only at its
+    default: ``name`` set to anything but ``default``, or, with no
+    default, set to any non-empty value (the JAX package's test)."""
+    value = os.environ.get(name)
+    if value is None or value == default or (default is None and not value):
+        return
+    raise not_ported(f"{what} ({name}={value!r})", item)

@@ -238,16 +238,61 @@ def test_port_bf16_meets_the_card_limits(pdf, golden):
     assert vs["cer"] <= smoke.PIPELINE_BF16_MAX_CER
 
 
-@pytest.mark.parametrize("stage", ["TABLE"])
-def test_port_raises_for_stages_not_ported(pdf, stage):
+@pytest.mark.parametrize("strategy", ["unet_slanet_plus", "unet_unitable"])
+def test_port_builds_table_stage_as_jax_package(strategy):
+    """With the table stage on, the port's analyzer holds what the JAX
+    package's registry builds: the strategy's models from the demo
+    checkpoints (the classifier routing by its own kinds), the defaults of
+    the table options the port has, and no OCR system inside tables."""
     import torch
 
-    from rapiddoc_tpu_torch import RapidDoc
+    from rapiddoc_tpu.models import registry as jax_registry
+
+    from rapiddoc_tpu_torch.models.registry import build_analyzer
+    from rapiddoc_tpu_torch.models.table.engine import TableRecognizer
 
     with held_env():
-        del os.environ[f"RAPIDDOC_DISABLE_{stage}"]
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-            RapidDoc(device="cpu", dtype=torch.float32)(pdf, parse_method="ocr")
+        del os.environ["RAPIDDOC_DISABLE_TABLE"]
+        got = build_analyzer(configs={"table": {"strategy": strategy}}, device="cpu",
+                             dtype=torch.float32).table_model
+        want = jax_registry.build_table_model({"strategy": strategy})
+    assert isinstance(got, TableRecognizer)
+    assert got.ocr is None and want.ocr is None
+    for field in ("strategy", "use_cls_model", "wireless_max_len", "use_img2table",
+                  "use_compare_table"):
+        assert getattr(got.config, field) == getattr(want.config, field), field
+    assert type(got.wireless).__name__ == type(want.wireless).__name__
+    assert got.classifier is not None and want.classifier is not None
+    if strategy == "unet_unitable":
+        assert vars(got.wireless.dims) == vars(want.wireless.dims)
+
+
+KNOBS = {
+    "RAPIDDOC_RGB_TRANSFER": ("1", 7), "RAPIDDOC_DET_WIRE_BITS": ("8", 7),
+    "RAPIDDOC_DET_PROB_BITS": ("8", 7), "RAPIDDOC_REC_WIRE_BITS": ("8", 7),
+    "RAPIDDOC_LAYOUT_WIRE_BITS": ("8", 8),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(KNOBS))
+def test_port_raises_for_wire_knobs_it_does_not_run(knob):
+    """A wire or transfer knob the JAX package reads, set to anything but
+    its default, raises NotImplementedError naming its ROADMAP item (the
+    JAX package would give other numbers); the default value builds."""
+    import torch
+
+    from rapiddoc_tpu_torch.models.registry import build_analyzer
+
+    value, item = KNOBS[knob]
+    with held_env(RAPIDDOC_DEMO_LAYOUT="1", **{knob: value}):
+        del os.environ["RAPIDDOC_DISABLE_LAYOUT"]
+        with pytest.raises(NotImplementedError, match=f"{knob}.*ROADMAP Queue 1 item {item}:"):
+            build_analyzer(formula_enable=False, table_enable=False, device="cpu",
+                           dtype=torch.float32)
+        os.environ[knob] = "" if knob == "RAPIDDOC_RGB_TRANSFER" else "4"
+        analyzer = build_analyzer(formula_enable=False, table_enable=False, device="cpu",
+                                  dtype=torch.float32)
+    assert analyzer.layout_model is not None and analyzer.ocr is not None
 
 
 @pytest.mark.parametrize("stage", ["LAYOUT", "LAYOUT_DEMO", "FORMULA"])

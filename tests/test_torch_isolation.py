@@ -46,6 +46,9 @@ MAIN_PATH_MODULES = (
     "rapiddoc_tpu_torch.pipeline.middle", "rapiddoc_tpu_torch.pipeline.page_build",
     "rapiddoc_tpu_torch.pipeline.mkcontent", "rapiddoc_tpu_torch.reading_order.xycut",
     "rapiddoc_tpu_torch.reading_order.xycut_v3", "rapiddoc_tpu_torch.data.io",
+    "rapiddoc_tpu_torch.models.table.engine", "rapiddoc_tpu_torch.models.table.unet",
+    "rapiddoc_tpu_torch.models.table.slanet", "rapiddoc_tpu_torch.models.table.unitable",
+    "rapiddoc_tpu_torch.models.table.cls", "rapiddoc_tpu_torch.utils.morph",
 )
 
 
