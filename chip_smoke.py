@@ -107,7 +107,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 N_FRAMES, C_FEAT = 10240, 120  # REC_BUCKETS batch 128 x T 80; neck width
-VOCABS = (96, 18710)  # demo charset; published ppocrv6_small_dict.txt
+VOCABS = (96, 91, 18710)  # demo charset; Cyrillic demo; published ppocrv6_small_dict.txt
 H100_BF16_FLOPS = 989e12
 H100_BYTES_PER_S = 3.35e12
 TIMED_RUNS = 3
@@ -211,8 +211,44 @@ TABLE_BF16 = {"min_kinds_equal": 13, "max_unet_bit_diff_share": 2e-3,
               "max_unitable_token_cer": 0.06}
 TABLE_PARSE_BF16 = {"min_exact_share": 0.75, "max_cer": 0.20, "max_latex_cer": 0.65,
                     "max_count_gap": 2, "min_tables_equal": 7}
+# The seventh slice's bf16 runs against the JAX package's bf16 goldens,
+# from the port's bf16 on the CPU (python tests/test_torch_ocr_family.py
+# --compare, tests/test_torch_table_ocr.py --compare and
+# tests/test_torch_orientation.py --compare), with margins for the card's
+# summation order:
+# - RapidDoc(lang="ru"): 18/21 lines equal (0.857), CER 0.0155 (the JAX
+#   package's own fp32 against its bf16: the same); margin 0.157, 0.045.
+# - The OCR knobs on the three fixture pages, worst of the eight: 0.649 of
+#   lines equal, CER 0.0408, 2 boxes unmatched (the JAX package's own:
+#   0.689, 0.048, 2); margin 0.10 of lines, 0.03 of CER, 2 boxes.
+# - The published-format rec on 17 lines of random-head text (about 80
+#   characters each from 18 710 classes): 3 lines equal (the JAX
+#   package's own fp32 against its bf16: 2); margin 2.
+# - The table stage with OCR (default configuration, 17 crops): 4 tables'
+#   HTML equal, CER 0.154 (the JAX package's own: 2, 0.170); margin 2
+#   tables, 0.10 of CER.
+# - The landscape fixture with USE_DOC_ORIENTATION_CLASSIFY=1, every stage
+#   on: angles 2/2 equal, 75/108 lines equal (0.694), CER 0.243 (the JAX
+#   package's own: 0.704, 0.480; the turned pages' text is mostly
+#   near-tie characters); margin 1 angle, 0.15 of lines, 0.2 of CER.
+RU_BF16 = {"min_exact_share": 0.70, "max_cer": 0.06}
+KNOB_BF16 = {"max_unmatched": 4, "min_exact_share": 0.55, "max_cer": 0.07}
+PUBLISHED_BF16_MIN_EQUAL = 1
+TABLE_OCR_BF16 = {"min_equal": 2, "max_cer": 0.25}
+ORIENTATION_BF16 = {"min_angles_equal": 1, "min_exact_share": 0.55, "max_cer": 0.45}
 DET_MEAN = (0.485, 0.456, 0.406)
 DET_STD = (0.229, 0.224, 0.225)
+
+
+# The published-format OCR checkpoints the ocr_family phase writes into a
+# models dir (write_published_ocr): the demo det's leaves as
+# ocr_det_v6_small.npz, and the demo rec's backbone and neck under a
+# (120, PUBLISHED_V) head from PUBLISHED_HEAD_SEED as ocr_rec_v6_small.npz.
+# The registry decodes it through ppocrv6_small_dict.txt (18 708 entries,
+# plus blank and space).
+PUBLISHED_V = 18710
+PUBLISHED_HEAD_SEED = 0
+PUBLISHED_HEAD_STD = 4.0  # times 1/sqrt(C): logit gaps well above bf16 rounding
 
 
 class SmokeFailure(Exception):
@@ -251,6 +287,45 @@ def ctc_bound_ms(n: int, c: int, v: int) -> tuple[float, str]:
     nbytes = n * c * 2 + c * v * 2 + v * 4 + n * 8
     t_ops, t_bytes = ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def write_published_ocr(models_dir: Path) -> None:
+    """Published-format OCR checkpoints (flat flax npz, float32) in
+    ``models_dir``, made from the in-repo demo ones and a seed: a
+    random-init det finds one box a page and a random-init rec emits only
+    blanks, so the det keeps the demo's leaves and the rec the demo's
+    backbone and neck, under a head of the published width."""
+    import numpy as np
+
+    from rapiddoc_tpu_torch.config import DEMO_ASSETS_DIR
+    from rapiddoc_tpu_torch.models.weights import load_npz
+
+    det = load_npz(DEMO_ASSETS_DIR / "ocr_det_demo.npz")
+    rec = load_npz(DEMO_ASSETS_DIR / "ocr_rec_demo.npz")
+    c = rec["params/head/kernel"].shape[0]
+    rng = np.random.default_rng(PUBLISHED_HEAD_SEED)
+    rec["params/head/kernel"] = (rng.standard_normal((c, PUBLISHED_V))
+                                 * (PUBLISHED_HEAD_STD / np.sqrt(c))).astype(np.float32)
+    rec["params/head/bias"] = np.zeros(PUBLISHED_V, np.float32)
+    models_dir.mkdir(parents=True, exist_ok=True)
+    np.savez(models_dir / "ocr_det_v6_small.npz", **det)
+    np.savez(models_dir / "ocr_rec_v6_small.npz", **rec)
+
+
+def compare_tables(got: list, want: list) -> dict:
+    """Tables' HTML against a golden's: how many are equal, and the
+    character error rate over the golden's HTML."""
+    edits = sum(_edits(g, w) for g, w in zip(got, want))
+    return {"tables": len(want), "equal": sum(g == w for g, w in zip(got, want)),
+            "cer": edits / max(sum(len(w) for w in want), 1)}
+
+
+def check_table_ocr_bf16(vs: dict) -> None:
+    check(vs["equal"] >= TABLE_OCR_BF16["min_equal"],
+          f"table_ocr bf16: {vs['equal']} of {vs['tables']} tables equal "
+          f"< {TABLE_OCR_BF16['min_equal']}")
+    check(vs["cer"] <= TABLE_OCR_BF16["max_cer"],
+          f"table_ocr bf16: HTML CER {vs['cer']:.4f} > {TABLE_OCR_BF16['max_cer']}")
 
 
 def phase_card() -> str:
@@ -1620,6 +1695,374 @@ def main_path(card: str) -> dict:
     return counts
 
 
+# ------------------------------------------------ the seventh slice's paths
+
+# The table stage with an OCR system inside it (tests/test_torch_table_ocr.py
+# holds the crops' and the golden's generator): configurations by name.
+TABLE_OCR_CONFIGS = {
+    "default": {},
+    "blank": {"enable_blank_cell_rec": True},
+    "compare": {"use_compare_table": True},
+    "wired_only": {"strategy": "unet"},
+}
+OCR_KNOBS = {
+    "rgb_transfer": ({"RAPIDDOC_RGB_TRANSFER": "1"}, {}),
+    "det_wire_8": ({"RAPIDDOC_DET_WIRE_BITS": "8"}, {}),
+    "det_prob_8": ({"RAPIDDOC_DET_PROB_BITS": "8"}, {}),
+    "rec_wire_8": ({"RAPIDDOC_REC_WIRE_BITS": "8"}, {}),
+    "stretch_0": ({"RAPIDDOC_CONTRAST_STRETCH": "0"}, {}),
+    "stretch_1": ({"RAPIDDOC_CONTRAST_STRETCH": "1"}, {}),
+    "limit_640": ({}, {"Det.limit_side_len": 640}),
+    "limit_1280": ({}, {"Det.limit_side_len": 1280}),
+}
+WORD_PAGES = (0, 2)
+# fp32 OCR against the JAX package's fp32 golden: texts equal, box corners
+# within OCR_BOX_TOL px, word polygons within WORD_POLY_TOL px
+OCR_BOX_TOL = 1.0
+WORD_POLY_TOL = 1e-3
+ORIENTATION_BOX_TOL = 0.05  # px, the layout detector's fp32 boxes
+
+
+def clean_env(**extra: str) -> None:
+    """Every RAPIDDOC_*/MINERU_* setting and USE_DOC_ORIENTATION_CLASSIFY
+    off, then ``extra``."""
+    import os
+
+    for k in [k for k in os.environ if k.startswith(("RAPIDDOC_", "MINERU_"))
+              or k == "USE_DOC_ORIENTATION_CLASSIFY"]:
+        del os.environ[k]
+    os.environ.update(extra)
+
+
+def asset(name: str) -> Path:
+    return ROOT / "rapiddoc_tpu_torch" / "assets" / name
+
+
+def ocr_rows(out: list) -> list:
+    """OCR output with numpy values as floats (boxes, scores, words)."""
+    import numpy as np
+
+    return [[{**it, "box": np.asarray(it["box"], np.float64).tolist()} for it in page]
+            for page in out]
+
+
+def check_ocr_equal(got: list, want: list, label: str, poly_tol: float | None = None) -> None:
+    """fp32 OCR against the golden: the same lines in the same order, texts
+    equal, box corners within OCR_BOX_TOL, word polygons within poly_tol."""
+    import numpy as np
+
+    check(len(got) == len(want), f"{label}: {len(got)} pages, golden {len(want)}")
+    for page, (gp, wp) in enumerate(zip(got, want)):
+        gt, wt = [it["text"] for it in gp], [it["text"] for it in wp]
+        check(gt == wt, f"{label} page {page}: texts differ from the golden's "
+                        f"({sum(a == b for a, b in zip(gt, wt))}/{len(wt)} equal)")
+        for g, w in zip(gp, wp):
+            err = float(np.abs(np.asarray(g["box"]) - np.asarray(w["box"])).max())
+            check(err <= OCR_BOX_TOL, f"{label} page {page}: a box is {err:.3g} px off")
+            if poly_tol is None:
+                continue
+            check([x["word"] for x in g.get("words", [])] == [x["word"] for x in w["words"]],
+                  f"{label} page {page}: words differ from the golden's")
+            for a, b in zip(g["words"], w["words"]):
+                err = float(np.abs(np.asarray(a["poly"], np.float64)
+                                   - np.asarray(b["poly"])).max())
+                check(err <= poly_tol, f"{label} page {page}: a word polygon is {err:.3g} px off")
+
+
+class LaunchCount:
+    """K1's launches and the rec dispatches of ``recognizers`` over a run."""
+
+    def __init__(self, *recognizers):
+        from rapiddoc_tpu_torch.ops.ctc_head import fused_ctc_argmax
+
+        self.k1, self.recs = fused_ctc_argmax, recognizers
+
+    def __enter__(self):
+        self.k1.launches = 0
+        self.calls0 = [r.session.stats.calls for r in self.recs]
+        return self
+
+    def __exit__(self, *exc):
+        self.launches = self.k1.launches
+        self.dispatches = sum(r.session.stats.calls - c for r, c in zip(self.recs, self.calls0))
+
+    def check(self, label: str) -> dict:
+        check(self.launches > 0, f"{label}: the ctc_head kernel launched no time")
+        check(self.launches == self.dispatches,
+              f"{label}: {self.launches} ctc_head launches for {self.dispatches} rec dispatches")
+        return {"ctc_head": self.launches, "rec_dispatches": self.dispatches}
+
+
+def phase_ocr_family(card: str) -> dict:
+    """RapidDoc(lang="ru") on the Cyrillic fixture; the OCR knobs, word
+    boxes and the published-format parse on the OCR fixture. fp32 equal
+    to the JAX package's golden, bf16 within bands; K1's launches held to
+    the rec dispatches on every path. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from rapiddoc_tpu_torch import RapidDoc
+    from rapiddoc_tpu_torch.models.ocr.engine import crop_quad
+    from rapiddoc_tpu_torch.models.registry import build_ocr_system
+
+    golden = json.loads(asset("ocr_family_golden.json").read_text())
+    with np.load(asset("ocr_smoke_pages.npz")) as z:
+        pages = list(z["pages"])
+    off = {f"RAPIDDOC_DISABLE_{k}": "1" for k in ("LAYOUT", "FORMULA", "TABLE")}
+    counts = {}
+
+    # RapidDoc(lang="ru"): the Cyrillic demo rec, K1 at V = 91
+    pdf = asset("ocr_ru_doc.pdf").read_bytes()
+    clean_env(**off)
+    for dtype, mode in ((torch.float32, "fp32"), (None, "bf16")):
+        rapid = RapidDoc(lang="ru", device="cuda", dtype=dtype)
+        rec = rapid._stack().analyzer.ocr.recognizer
+        check(rec.session.module.head.kernel.shape[1] == 91, "ru: the head is not 91 wide")
+        rapid(pdf, parse_method="ocr")  # warm-up
+        torch.cuda.synchronize()
+        with LaunchCount(rec) as lc:
+            t0 = time.perf_counter()
+            out = rapid(pdf, parse_method="ocr")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        lines = [d.get("text", "") for p in out.model_json for d in p["layout_dets"]]
+        want = golden["ru"][mode]
+        vs = compare_markdown(out.markdown, want["markdown"], f"ru {mode}")
+        emit({"phase": "ocr_family", "path": "ru", "dtype": mode, "card": card, "v": 91,
+              "pages": len(out.model_json), "pages_per_s": len(out.model_json) / wall,
+              "launches": lc.check(f"ru {mode}"), "vs_golden": vs})
+        counts["ru"] = lc.launches
+        if mode == "fp32":
+            check(out.markdown == want["markdown"], "ru fp32: the Markdown differs from the golden's")
+            check(lines == want["lines"], "ru fp32: the lines differ from the golden's")
+        else:
+            check(vs["exact_share"] >= RU_BF16["min_exact_share"],
+                  f"ru bf16: only {vs['exact_share']:.3f} of lines equal")
+            check(vs["cer"] <= RU_BF16["max_cer"], f"ru bf16: CER {vs['cer']:.4f}")
+
+    # the OCR knobs on the three fixture pages
+    knob_launches = 0
+    for name, (env, cfg) in OCR_KNOBS.items():
+        readings = {}
+        for dtype, mode in ((torch.float32, "fp32"), (None, "bf16")):
+            clean_env(**env)
+            system = build_ocr_system(dict(cfg), dtype=dtype)
+            with LaunchCount(system.recognizer) as lc:
+                got = ocr_rows(system(pages))
+            lc.check(f"knob {name} {mode}")
+            knob_launches += lc.launches
+            want = golden["knobs"][mode][name]
+            if mode == "fp32":
+                check_ocr_equal(got, want, f"knob {name} fp32")
+            else:
+                vs = compare_to_golden(got, want, f"knob {name} bf16")
+                readings["bf16_vs_golden"] = vs
+                missed = vs["lines"] - vs["boxes_iou_ge_0.9"]
+                check(missed <= KNOB_BF16["max_unmatched"], f"knob {name} bf16: {missed} unmatched")
+                check(vs["exact_share"] >= KNOB_BF16["min_exact_share"],
+                      f"knob {name} bf16: only {vs['exact_share']:.3f} of lines equal")
+                check(vs["cer"] <= KNOB_BF16["max_cer"], f"knob {name} bf16: CER {vs['cer']:.4f}")
+        emit({"phase": "ocr_family", "path": "knob", "knob": name, "fp32_equal": True, **readings})
+    counts["knobs"] = knob_launches
+
+    # word boxes
+    clean_env()
+    system = build_ocr_system(dtype=torch.float32)
+    with LaunchCount(system.recognizer) as lc:
+        got = system([pages[i] for i in WORD_PAGES], return_word_boxes=True)
+    lc.check("words fp32")
+    check_ocr_equal(ocr_rows(got), golden["words"]["fp32"], "words fp32", WORD_POLY_TOL)
+    words = sum(len(it["words"]) for p in got for it in p)
+    emit({"phase": "ocr_family", "path": "words", "dtype": "fp32", "words": words,
+          "poly_tol_px": WORD_POLY_TOL, "equal": True})
+
+    # the published format: RapidDoc with ocr_det_v6_small.npz and
+    # ocr_rec_v6_small.npz in its models dir; K1 at V = 18 710
+    models_dir = ROOT / "rapiddoc_tpu_torch" / "_build" / "published_ocr"
+    write_published_ocr(models_dir)
+    lines = [crop_quad(pages[0], np.asarray(b, np.float32)) for b in golden["published"]["boxes"]]
+    doc = fixture_pdf()
+    for dtype, mode in ((torch.float32, "fp32"), (None, "bf16")):
+        clean_env(RAPIDDOC_MODELS_DIR=str(models_dir), **off)
+        rapid = RapidDoc(device="cuda", dtype=dtype)
+        rec = rapid._stack().analyzer.ocr.recognizer
+        check(rec.session.module.head.kernel.shape[1] == PUBLISHED_V,
+              "published: the head is not 18 710 wide")
+        rapid(doc, parse_method="ocr")  # warm-up
+        torch.cuda.synchronize()
+        with LaunchCount(rec) as lc:
+            t0 = time.perf_counter()
+            out = rapid(doc, parse_method="ocr")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = lc.check(f"published parse {mode}")
+        texts = [r.text for r in rec(lines)]
+        want = golden["published"][mode]["texts"]
+        equal = sum(a == b for a, b in zip(texts, want))
+        emit({"phase": "ocr_family", "path": "published", "dtype": mode, "card": card,
+              "v": PUBLISHED_V, "pages": len(out.model_json),
+              "pages_per_s": len(out.model_json) / wall, "launches": launches,
+              "rec_lines_equal": equal, "rec_lines": len(want)})
+        counts["published"] = lc.launches
+        if mode == "fp32":
+            check(equal == len(want), f"published fp32: {equal}/{len(want)} rec lines equal")
+        else:
+            check(equal >= PUBLISHED_BF16_MIN_EQUAL,
+                  f"published bf16: {equal}/{len(want)} rec lines equal")
+    clean_env()
+    return counts
+
+
+def phase_table_ocr(card: str) -> dict:
+    """TableRecognizer(ocr_system=build_ocr_system()) on the 15 committed
+    crops and the two of table_ocr_crops.npz, in four configurations:
+    fp32 HTML equal to the golden's with no fallback taken, bf16 (default
+    configuration) within its band; ms a table and the OCR share of it.
+    Returns K1's launches."""
+    import numpy as np
+    import torch
+
+    from rapiddoc_tpu_torch.models.registry import build_ocr_system
+    from rapiddoc_tpu_torch.models.table.engine import TableRecognizer
+
+    golden = json.loads(asset("table_ocr_golden.json").read_text())
+    with np.load(asset("table_smoke_crops.npz")) as z:
+        crops = [z[f"crop_{i}"] for i in range(15)]
+    with np.load(asset("table_ocr_crops.npz")) as z:
+        crops += [z["stacked_glyphs"], z["text_grid"]]
+    clean_env()
+    launches = 0
+    for dtype, mode in ((torch.float32, "fp32"), (None, "bf16")):
+        ocr = build_ocr_system(dtype=dtype)
+        for name, cfg in TABLE_OCR_CONFIGS.items():
+            if mode == "bf16" and name != "default":
+                continue
+            rec = TableRecognizer.build(dict(cfg), device="cuda", dtype=dtype)
+            rec.ocr = ocr
+            rec.batch_predict(crops[:2])  # warm-up
+            torch.cuda.synchronize()
+            with LaunchCount(ocr.recognizer) as lc:
+                t0 = time.perf_counter()
+                html = rec.batch_predict(crops)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            counted = lc.check(f"table_ocr {name} {mode}")
+            launches += lc.launches
+            check(rec.fallbacks == 0, f"table_ocr {name} {mode}: a fallback was taken")
+            t0 = time.perf_counter()
+            ocr(crops, return_word_boxes=True)
+            torch.cuda.synchronize()
+            ocr_s = time.perf_counter() - t0
+            vs = compare_tables(html, golden[mode][name])
+            emit({"phase": "table_ocr", "config": name, "dtype": mode, "card": card,
+                  "tables": len(crops), "ms_per_table": wall * 1e3 / len(crops),
+                  "ocr_ms_per_table": ocr_s * 1e3 / len(crops), "ocr_share": ocr_s / wall,
+                  "launches": counted, "vs_golden": vs})
+            if mode == "fp32":
+                check(html == golden["fp32"][name],
+                      f"table_ocr {name} fp32: {vs['equal']}/{vs['tables']} tables' HTML equal")
+            else:
+                check_table_ocr_bf16(vs)
+    clean_env()
+    return {"table_ocr": launches}
+
+
+def masked_dets(model_json: list) -> list:
+    """Each page's dets (category, poly, text), the uuids of in-table image
+    placeholders masked as table_parse_summary masks them."""
+    dets = [[{"category_id": d["category_id"], "poly": [float(v) for v in d["poly"]],
+              "text": d.get("text", "")} for d in page["layout_dets"]] for page in model_json]
+    text = json.dumps(dets)
+    for page in model_json:
+        for det in page["layout_dets"]:
+            for fill in det.get("fill_images", []):
+                text = text.replace(fill["uuid"], "<uuid>")
+    return json.loads(text)
+
+
+def phase_orientation(card: str) -> dict:
+    """USE_DOC_ORIENTATION_CLASSIFY=1 RapidDoc(device="cuda")(pdf,
+    parse_method="ocr") on the landscape fixture with every stage on:
+    fp32 angles, Markdown, content list, tables, LaTeX, payloads and dets
+    equal to the golden's (boxes within ORIENTATION_BOX_TOL), bf16 within
+    bands; _rotate_dets_back runs on the card. Returns K1's launches."""
+    import numpy as np
+    import torch
+
+    from rapiddoc_tpu_torch import RapidDoc
+    from rapiddoc_tpu_torch.pdfio import open_pdf
+    from rapiddoc_tpu_torch.pdfio.render import render_page_full
+    from rapiddoc_tpu_torch.pipeline import scheduler
+
+    golden = json.loads(asset("orientation_smoke_golden.json").read_text())
+    pdf = asset("orientation_smoke_doc.pdf").read_bytes()
+    doc = open_pdf(pdf)
+    pages = [np.asarray(render_page_full(doc.get_page(i), dpi=200, with_text=False)[0])
+             for i in range(len(doc))]
+    check([sha256(p) for p in pages] == golden["page_sha256"], "orientation: pages differ")
+    turned = []
+    real = scheduler._rotate_dets_back
+
+    def counted(dets, angle, w, h):
+        turned.append(angle)
+        return real(dets, angle, w, h)
+
+    scheduler._rotate_dets_back = counted
+    launches = 0
+    try:
+        for dtype, mode in ((torch.float32, "fp32"), (None, "bf16")):
+            clean_env(USE_DOC_ORIENTATION_CLASSIFY="1", RAPIDDOC_DEMO_LAYOUT="1")
+            rapid = RapidDoc(device="cuda", dtype=dtype)
+            analyzer = rapid._stack().analyzer
+            angles = analyzer.orientation_model(pages)
+            rapid(pdf, parse_method="ocr")  # warm-up
+            torch.cuda.synchronize()
+            turned.clear()
+            with LaunchCount(analyzer.ocr.recognizer) as lc:
+                t0 = time.perf_counter()
+                out = rapid(pdf, parse_method="ocr")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            counts = lc.check(f"orientation {mode}")
+            launches += lc.launches
+            got = table_parse_summary(out)
+            want = golden[mode]
+            vs = compare_table_parse(got, want)
+            emit({"phase": "orientation", "dtype": mode, "card": card, "angles": angles,
+                  "golden_angles": golden["angles"][mode], "turned_back": turned,
+                  "pages": len(out.model_json), "pages_per_s": len(out.model_json) / wall,
+                  "launches": counts, "vs_golden": vs})
+            check(sorted(turned) == sorted(a for a in angles if a),
+                  f"orientation {mode}: dets turned back for {turned}, angles {angles}")
+            if mode == "fp32":
+                check(angles == golden["angles"]["fp32"], f"orientation fp32: angles {angles}")
+                check(any(angles), "orientation fp32: no page was turned")
+                for key in ("markdown", "content_list", "tables", "latex", "images"):
+                    check(got[key] == want[key], f"orientation fp32: the {key} differs")
+                dets = masked_dets(out.model_json)
+                check([len(p) for p in dets] == [len(p) for p in want["dets"]],
+                      "orientation fp32: det counts differ")
+                for gp, wp in zip(dets, want["dets"]):
+                    for g, w in zip(gp, wp):
+                        check((g["category_id"], g["text"]) == (w["category_id"], w["text"]),
+                              "orientation fp32: a det's category or text differs")
+                        err = float(np.abs(np.asarray(g["poly"], np.float64)
+                                           - np.asarray(w["poly"])).max())
+                        check(err <= ORIENTATION_BOX_TOL, f"orientation fp32: a det is {err:.3g} px off")
+            else:
+                check(sum(a == b for a, b in zip(angles, golden["angles"]["bf16"]))
+                      >= ORIENTATION_BF16["min_angles_equal"], f"orientation bf16: angles {angles}")
+                md = vs["markdown"]
+                check(md["exact_share"] >= ORIENTATION_BF16["min_exact_share"],
+                      f"orientation bf16: only {md['exact_share']:.3f} of lines equal")
+                check(md["cer"] <= ORIENTATION_BF16["max_cer"],
+                      f"orientation bf16: CER {md['cer']:.4f}")
+    finally:
+        scheduler._rotate_dets_back = real
+        clean_env()
+    return {"orientation": launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -1660,6 +2103,9 @@ def main() -> int:
         timed("table", phase_table, card)
         timed("pipeline_table", phase_pipeline_table)
         counts = timed("main_path", main_path, card)
+        family = timed("ocr_family", phase_ocr_family, card)
+        table_ocr = timed("table_ocr", phase_table_ocr, card)
+        orientation = timed("orientation", phase_orientation, card)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1683,7 +2129,9 @@ def main() -> int:
         "launches": counts["ctc_head"],
         "launches_by_path": {"main_path": counts["ctc_head"],
                              "pipeline_layout": layout_counts["ctc_head"], "pipeline": launches,
-                             "ocr": ocr_launches},
+                             "ocr": ocr_launches,
+                             **{f"ocr_family_{k}": v for k, v in family.items()},
+                             **table_ocr, **orientation},
         "max_abs_err": k1["max_abs_err"],
         "max_rel_err": k1["max_rel_err"], "matches_plain": True,
         "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],

@@ -8,8 +8,12 @@ demo checkpoint under ``RAPIDDOC_DEMO_LAYOUT=1``, else the fallback
 layout), OCR, the formula recognizer and the table recognizer
 (``table_config`` reaches ``TableRecognizer.build``: ``strategy``
 ``unet_slanet_plus`` by default or ``unet_unitable``,
-``wireless_max_len``, ``use_img2table``, ``use_compare_table``; the
-stage is off with ``table_enable=False`` or ``RAPIDDOC_DISABLE_TABLE=1``).
+``wireless_max_len``, ``use_img2table``, ``use_compare_table``,
+``detect_rotation``, ``enable_blank_cell_rec``; the stage is off with
+``table_enable=False`` or ``RAPIDDOC_DISABLE_TABLE=1``), with ``lang``
+choosing the OCR rec, ``ocr_config``'s ``Det.limit_side_len``, the OCR
+wire and contrast knobs and ``USE_DOC_ORIENTATION_CLASSIFY`` read as the
+JAX package reads them.
 The window loop, its render-ahead and assembly threads, the
 ``DeferredAR`` packing of formula and table regions across windows
 (when there is more than one window and no checkpoint dir: the windows
@@ -99,7 +103,7 @@ class ModelStack:
     # identity
     _ENV_KEYS = (
         "DISABLE_OCR", "DISABLE_LAYOUT", "DISABLE_FORMULA", "DISABLE_TABLE",
-        "DEMO_LAYOUT", "MODELS_DIR", "CONTRAST_STRETCH",
+        "DEMO_LAYOUT", "MODELS_DIR", "CONTRAST_STRETCH", "OCR_DICT",
         "USE_DOC_ORIENTATION_CLASSIFY", "RGB_TRANSFER", "DET_WIRE_BITS",
         "DET_PROB_BITS", "REC_WIRE_BITS", "LAYOUT_WIRE_BITS", "UNET_WIRE_BITS",
     )

@@ -1,14 +1,19 @@
 """OCR engine: detector + recognizer over TorchSessions.
 
 Port of ``rapiddoc_tpu/models/ocr/engine.py``: batched, bucket-grouped
-det and width-sorted rec, with all geometry on the host. The device
-output of det is the JAX package's wire format (a bit-packed threshold
-map and a 4-bit 2x-pooled prob map); rec ships 4-bit luma and returns
-per-frame (ids, probs) from the fused CTC head.
+det and width-sorted rec, with all geometry on the host. The wires are
+the JAX package's, with its environment knobs: det and rec ship 4-bit
+luma by default (``RAPIDDOC_DET_WIRE_BITS=8`` / ``RAPIDDOC_REC_WIRE_BITS=8``
+full-depth luma, ``RAPIDDOC_RGB_TRANSFER=1`` full-depth RGB); det reads
+back a bit-packed threshold map and a 2x-pooled prob map in 4 bits
+(``RAPIDDOC_DET_PROB_BITS=8``: 8 bits); rec returns per-frame (ids,
+probs) from the fused CTC head. ``TextSystem(..., return_word_boxes=True)``
+adds each line's word polygons.
 """
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -17,22 +22,27 @@ import torch
 
 from ...engine.buckets import DET_BUCKETS, REC_BUCKETS, group_by_bucket, pad_image_to
 from ...engine.session import TorchSession
-from ...utils.unported import check_knob
+from ...utils.unported import not_ported
 from .det import DBNet
 from .pre_post import (
     CTCLabelDecoder,
     DBPostParams,
     contrast_stretch as pp_contrast_stretch,
     db_postprocess,
+    det_normalize_device,
     det_normalize_device_nibble,
     det_resize,
+    map_crop_box_to_quad,
     pack_nibbles,
     perspective_transform,
+    rec_normalize_device,
     rec_normalize_device_nibble,
     rec_resize,
     rec_width_bucket,
+    split_words,
     to_luma,
     warp_perspective,
+    word_boxes_in_crop,
 )
 from .rec import SVTRRec
 
@@ -49,43 +59,56 @@ class DetResult:
 class RecResult:
     text: str
     score: float
+    # optional word-level results: (word, score, [x0,y0,x1,y1] in crop px)
+    words: list[tuple[str, float, list[float]]] | None = None
 
 
-def det_wire(prob: torch.Tensor, thresh: float) -> dict[str, torch.Tensor]:
+def det_wire(prob: torch.Tensor, thresh: float, prob4: bool = True) -> dict[str, torch.Tensor]:
     """(B, H, W) prob map -> the det readback: the full-res threshold
-    bitmap packed 8 pixels a byte, and the 2x-pooled map in 4 bits."""
+    bitmap packed 8 pixels a byte, and the 2x-pooled map in 4 bits (two
+    a byte) or, without ``prob4``, in 8 bits."""
     b, h, w = prob.shape
     bits = (prob > thresh).to(torch.uint8).reshape(b, h, w // 8, 8)
     weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=prob.device)
     packed = (bits * weights).sum(-1, dtype=torch.uint8)
     pooled = prob.reshape(b, h // 2, 2, w // 2, 2).mean(dim=(2, 4))
+    if not prob4:
+        return {"bits": packed, "prob8": torch.round(pooled * 255.0).to(torch.uint8)}
     q = torch.round(pooled * 15.0).to(torch.uint8)
     return {"bits": packed, "prob4": (q[..., 0::2] << 4) | q[..., 1::2]}
 
 
 class TextDetector:
-    """DBNet over DET_BUCKETS, pages limited to 960 px on the long side.
-    Pages get the percentile contrast stretch the demo checkpoint was
-    trained for."""
+    """DBNet over DET_BUCKETS. Pages are resized so that their long side
+    (``limit_type="max"``) is at most, or their short side (``"min"``) at
+    least, ``limit_side_len``; ``contrast_stretch`` applies the
+    percentile stretch the demo checkpoint was trained for. The wire
+    knobs are read from the environment, as the JAX package reads them."""
 
-    limit_side_len = 960
-
-    def __init__(self, model: DBNet, *, device=None, dtype: torch.dtype | None = None):
-        # the JAX package's wire knobs (ocr/engine.py:106-116); the port
-        # runs the default 4-bit luma wire and 4-bit prob map only
-        check_knob("RAPIDDOC_RGB_TRANSFER", "the RGB det and rec wire", "ocr_family")
-        check_knob("RAPIDDOC_DET_WIRE_BITS", "the 8-bit det wire", "ocr_family", "4")
-        check_knob("RAPIDDOC_DET_PROB_BITS", "the 8-bit det prob map", "ocr_family", "4")
+    def __init__(self, model: DBNet, *, device=None, dtype: torch.dtype | None = None,
+                 limit_side_len: int = 960, limit_type: str = "max",
+                 contrast_stretch: bool = False):
         self.post_params = DBPostParams()
+        self.limit_side_len = limit_side_len
+        self.limit_type = limit_type
+        self.contrast_stretch = contrast_stretch
+        # 1 byte/px luma unless RAPIDDOC_RGB_TRANSFER is set; 4-bit luma
+        # unless RAPIDDOC_DET_WIRE_BITS says otherwise
+        self.gray_transfer = not os.environ.get("RAPIDDOC_RGB_TRANSFER")
+        self.nibble_wire = (
+            self.gray_transfer and os.environ.get("RAPIDDOC_DET_WIRE_BITS", "4") == "4"
+        )
+        self.prob4_wire = os.environ.get("RAPIDDOC_DET_PROB_BITS", "4") == "4"
         thresh = self.post_params.thresh
+        prob4 = self.prob4_wire
 
         def det_apply(m, x):
             prob = torch.clamp(m(x)[..., 0].float(), 0.0, 1.0)
-            return det_wire(prob, thresh)
+            return det_wire(prob, thresh, prob4)
 
         self.session = TorchSession(
-            det_apply, model, DET_BUCKETS, name="ocr_det", device=device,
-            dtype=dtype, preproc=det_normalize_device_nibble,
+            det_apply, model, DET_BUCKETS, name="ocr_det", device=device, dtype=dtype,
+            preproc=det_normalize_device_nibble if self.nibble_wire else det_normalize_device,
         )
 
     def __call__(self, images: Sequence[np.ndarray]) -> list[DetResult]:
@@ -94,20 +117,32 @@ class TextDetector:
         and replaced by their sub-lines (``_refine_merged``)."""
         return self._refine_merged(images, self._detect(images))
 
+    def detect_polys(self, images: Sequence[np.ndarray], params=None,
+                     n_points: int = 8) -> list[list[np.ndarray]]:
+        """Curved-text detection for seal crops (the JAX package's
+        ``db_postprocess_poly``): not ported yet."""
+        raise not_ported("TextDetector.detect_polys (curved-text detection)", "seal")
+
     def _detect(self, images: Sequence[np.ndarray]) -> list[DetResult]:
         prepped = []
         metas = []
         for img in images:
-            resized, _, _ = det_resize(img, self.limit_side_len)
+            resized, _, _ = det_resize(img, self.limit_side_len, self.limit_type)
             metas.append((img.shape[0], img.shape[1], resized.shape[0], resized.shape[1]))
-            prepped.append(to_luma(pp_contrast_stretch(resized)))  # normalize on device
+            if self.contrast_stretch:
+                resized = pp_contrast_stretch(resized)
+            if self.gray_transfer:
+                resized = to_luma(resized)
+            prepped.append(resized)  # uint8; normalize happens on device
         spec = self.session.bucket_spec
         groups = group_by_bucket([(m[2], m[3]) for m in metas], spec)
         results: list[DetResult | None] = [None] * len(images)
         max_b = spec.max_batch()
         pending = []
         for (bh, bw), idxs in groups.items():
-            batch = [pack_nibbles(pad_image_to(prepped[i], bh, bw)) for i in idxs]
+            batch = [pad_image_to(prepped[i], bh, bw) for i in idxs]
+            if self.nibble_wire:
+                batch = [pack_nibbles(b) for b in batch]
             handles = [
                 self.session.dispatch(np.stack(batch[j : j + max_b]))
                 for j in range(0, len(batch), max_b)
@@ -176,16 +211,19 @@ class TextDetector:
 
     def _reconstruct_prob(self, out: dict[str, np.ndarray]) -> np.ndarray:
         """Rebuild a prob map from the packed device output: the bitmap
-        reproduces the exact full-res thresholding; the 2x 4-bit map
-        (nearest-neighbour upsampled) supplies the values box scoring
-        averages over."""
+        reproduces the exact full-res thresholding; the 2x map (4 or 8
+        bits) supplies the values box scoring averages over, up-scaled
+        as cv2's INTER_NEAREST does an exact 2x (each value repeated)."""
         bits = out["bits"]
         h, w8 = bits.shape
         bitmap = np.unpackbits(bits, axis=1, count=w8 * 8).astype(bool)
-        p4 = out["prob4"]
-        prob8 = np.empty((p4.shape[0], p4.shape[1] * 2), np.float32)
-        prob8[:, 0::2] = (p4 >> 4).astype(np.float32) / 15.0
-        prob8[:, 1::2] = (p4 & 15).astype(np.float32) / 15.0
+        if "prob4" in out:
+            p4 = out["prob4"]
+            prob8 = np.empty((p4.shape[0], p4.shape[1] * 2), np.float32)
+            prob8[:, 0::2] = (p4 >> 4).astype(np.float32) / 15.0
+            prob8[:, 1::2] = (p4 & 15).astype(np.float32) / 15.0
+        else:
+            prob8 = out["prob8"].astype(np.float32) / 255.0
         prob = prob8.repeat(2, axis=0).repeat(2, axis=1)[:h, : w8 * 8]
         t = self.post_params.thresh
         # force host thresholding to agree with the device bitmap
@@ -195,22 +233,31 @@ class TextDetector:
 
 
 class TextRecognizer:
-    """SVTRRec over REC_BUCKETS with the fused CTC head; crops get the
-    demo checkpoint's contrast stretch."""
+    """SVTRRec over REC_BUCKETS with the fused CTC head at any vocabulary
+    width, decoding through ``charset`` (the dictionary's entries; the
+    decoder adds blank and space); ``contrast_stretch`` as in
+    TextDetector, the wire knobs
+    (``RAPIDDOC_RGB_TRANSFER``, ``RAPIDDOC_REC_WIRE_BITS``) read from the
+    environment."""
 
-    def __init__(self, model: SVTRRec, decoder: CTCLabelDecoder, *,
-                 device=None, dtype: torch.dtype | None = None):
-        # the JAX package's wire knobs (ocr/engine.py:390-398)
-        check_knob("RAPIDDOC_RGB_TRANSFER", "the RGB det and rec wire", "ocr_family")
-        check_knob("RAPIDDOC_REC_WIRE_BITS", "the 8-bit rec wire", "ocr_family", "4")
-        self.decoder = decoder
+    def __init__(self, model: SVTRRec, charset: list[str], *,
+                 device=None, dtype: torch.dtype | None = None,
+                 contrast_stretch: bool = False):
+        self.decoder = CTCLabelDecoder(charset)
+        self.contrast_stretch = contrast_stretch
+        self.gray_transfer = not os.environ.get("RAPIDDOC_RGB_TRANSFER")
+        self.nibble_wire = (
+            self.gray_transfer and os.environ.get("RAPIDDOC_REC_WIRE_BITS", "4") == "4"
+        )
         self.session = TorchSession(
-            lambda m, x: m(x), model, REC_BUCKETS, name="ocr_rec",
-            device=device, dtype=dtype, preproc=rec_normalize_device_nibble,
+            lambda m, x: m(x), model, REC_BUCKETS, name="ocr_rec", device=device, dtype=dtype,
+            preproc=rec_normalize_device_nibble if self.nibble_wire else rec_normalize_device,
         )
 
-    def __call__(self, crops: Sequence[np.ndarray]) -> list[RecResult]:
-        """crops: uint8 RGB text-line images."""
+    def __call__(self, crops: Sequence[np.ndarray], return_words: bool = False
+                 ) -> list[RecResult]:
+        """crops: uint8 RGB text-line images. With ``return_words``, each
+        result carries (word, score, bbox-in-crop) tuples."""
         if not len(crops):
             return []
         spec = self.session.bucket_spec
@@ -225,9 +272,13 @@ class TextRecognizer:
             # sort by true aspect so padded tails cluster
             idxs = sorted(idxs, key=lambda i: crops[i].shape[1] / max(crops[i].shape[0], 1))
             batch = [
-                pack_nibbles(to_luma(rec_resize(pp_contrast_stretch(crops[i]), wb)))
+                rec_resize(pp_contrast_stretch(crops[i]) if self.contrast_stretch else crops[i], wb)
                 for i in idxs
             ]
+            if self.gray_transfer:
+                batch = [to_luma(b) for b in batch]
+            if self.nibble_wire:
+                batch = [pack_nibbles(b) for b in batch]
             handles = [
                 self.session.dispatch(np.stack(batch[j : j + max_b]))
                 for j in range(0, len(batch), max_b)
@@ -237,7 +288,17 @@ class TextRecognizer:
             for i, (ids, probs) in zip(idxs, self.session.fetch_rows(handles)):
                 ch, cw = crops[i].shape[:2]
                 valid_t = max(1, int(math.ceil(min(wb, cw * 48 / max(ch, 1)) / 8)))
-                results[i] = RecResult(*self.decoder(ids, probs, valid_t=valid_t))
+                if not return_words:
+                    results[i] = RecResult(*self.decoder(ids, probs, valid_t=valid_t))
+                    continue
+                text, score, frames = self.decoder.decode_with_positions(
+                    ids, probs, valid_t=valid_t
+                )
+                words = split_words(text, frames)
+                boxes = word_boxes_in_crop(words, valid_t, cw, ch)
+                results[i] = RecResult(
+                    text, score, [(w[0], score, box) for w, box in zip(words, boxes)]
+                )
         return results  # type: ignore[return-value]
 
 
@@ -276,7 +337,11 @@ class TextSystem:
         self.recognizer = recognizer
         self.drop_score = drop_score
 
-    def __call__(self, images: Sequence[np.ndarray]) -> list[list[dict]]:
+    def __call__(self, images: Sequence[np.ndarray], return_word_boxes: bool = False
+                 ) -> list[list[dict]]:
+        """Per image, its lines: box, det_score, text, score and, with
+        ``return_word_boxes``, each word's polygon in image pixels (a line
+        whose crop was turned upright takes the line quad)."""
         det_results = self.detector(images)
         all_crops: list[np.ndarray] = []
         owners: list[tuple[int, int]] = []
@@ -284,16 +349,35 @@ class TextSystem:
             for box_idx, quad in enumerate(det.boxes):
                 all_crops.append(crop_quad(images[img_idx], quad))
                 owners.append((img_idx, box_idx))
-        rec_results = self.recognizer(all_crops)
+        rec_results = self.recognizer(all_crops, return_words=return_word_boxes)
         out: list[list[dict]] = [[] for _ in images]
-        for (img_idx, box_idx), rec in zip(owners, rec_results):
+        for crop, (img_idx, box_idx), rec in zip(all_crops, owners, rec_results):
             if rec.score < self.drop_score:
                 continue
             det = det_results[img_idx]
-            out[img_idx].append({
+            item = {
                 "box": det.boxes[box_idx].tolist(),
                 "det_score": float(det.scores[box_idx]),
                 "text": rec.text,
                 "score": rec.score,
-            })
+            }
+            if return_word_boxes and rec.words:
+                item["words"] = _word_polys(det.boxes[box_idx], crop, rec.words)
+            out[img_idx].append(item)
         return out
+
+
+def _word_polys(quad: np.ndarray, crop: np.ndarray, words: list) -> list[dict]:
+    """Each word's crop box mapped back onto the line's quad. A vertical
+    line's crop was turned by rot90 in crop_quad, where the homography no
+    longer applies: its words take the whole line quad."""
+    quad = quad.astype(np.float32)
+    ch, cw = crop.shape[:2]
+    qw = max(np.linalg.norm(quad[0] - quad[1]), np.linalg.norm(quad[2] - quad[3]))
+    qh = max(np.linalg.norm(quad[0] - quad[3]), np.linalg.norm(quad[1] - quad[2]))
+    rotated = qh > qw * 1.5
+    out = []
+    for word, score, box in words:
+        poly = quad.astype(np.float64) if rotated else map_crop_box_to_quad(box, cw, ch, quad)
+        out.append({"word": word, "score": score, "poly": np.asarray(poly).tolist()})
+    return out

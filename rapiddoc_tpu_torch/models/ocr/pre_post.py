@@ -20,6 +20,9 @@ scipy, written to give OpenCV's results:
   that of the hole grown by its 4-neighbours. Components and holes come
   from ``scipy.ndimage`` labelling; rectangles from OpenCV's rotating
   calipers, replayed in its float32 arithmetic.
+- ``perspective_transform`` and ``perspective_points`` reproduce
+  ``getPerspectiveTransform`` and ``perspectiveTransform`` (float32
+  points), which map word boxes back onto a line's quad.
 
 The DB postprocess, the CTC decoder and the other helpers are the JAX
 package's code, unchanged.
@@ -595,17 +598,41 @@ def find_contour_rects(seg: np.ndarray) -> list:
 # ------------------------------------------------------------------ det pre
 
 def det_resize(
-    img: np.ndarray, limit_side_len: int = 960, max_side_limit: int = 4000,
+    img: np.ndarray, limit_side_len: int = 960, limit_type: str = "max",
+    max_side_limit: int = 4000,
 ) -> tuple[np.ndarray, float, float]:
-    """Resize so the max side is at most the limit; sides to /32."""
+    """Resize so the max (or min) side respects the limit; sides to /32."""
     h, w = img.shape[:2]
-    ratio = min(1.0, limit_side_len / max(h, w))
+    if limit_type == "max":
+        ratio = min(1.0, limit_side_len / max(h, w))
+    else:
+        ratio = max(1.0, limit_side_len / max(min(h, w), 1))
     if max(h, w) * ratio > max_side_limit:
         ratio = max_side_limit / max(h, w)
     rh = max(32, int(round(h * ratio / 32) * 32))
     rw = max(32, int(round(w * ratio / 32) * 32))
     resized = resize_linear(img, rw, rh)
     return resized, rh / h, rw / w
+
+
+def det_normalize_device(x):
+    """Device-side det normalize of a full-depth uint8 NHWC batch:
+    ImageNet-normalized fp32; 1-channel (luma) batches broadcast to RGB."""
+    import torch
+
+    if x.shape[-1] == 1:
+        x = x.expand(-1, -1, -1, 3)
+    mean = torch.as_tensor(IMAGENET_MEAN, device=x.device)
+    std = torch.as_tensor(IMAGENET_STD, device=x.device)
+    return (x.float() / 255.0 - mean) / std
+
+
+def rec_normalize_device(x):
+    """Device-side rec normalize of a full-depth uint8 NHWC batch: fp32
+    in [-1, 1]; 1-channel (luma) batches broadcast to RGB."""
+    if x.shape[-1] == 1:
+        x = x.expand(-1, -1, -1, 3)
+    return x.float() / 127.5 - 1.0
 
 
 def _unpack_nibbles(x):
@@ -956,17 +983,115 @@ class CTCLabelDecoder:
         self, ids: np.ndarray, probs: np.ndarray, valid_t: int | None = None
     ) -> tuple[str, float]:
         """ids/probs: (T,) greedy argmax ids and their probabilities."""
+        text, score, _ = self.decode_with_positions(ids, probs, valid_t)
+        return text, score
+
+    def decode_with_positions(
+        self, ids: np.ndarray, probs: np.ndarray, valid_t: int | None = None
+    ) -> tuple[str, float, list[int]]:
+        """Greedy decode also returning each emitted char's frame index
+        (for word-box geometry)."""
         if valid_t is not None:
             ids = ids[:valid_t]
             probs = probs[:valid_t]
         out: list[str] = []
         confs: list[float] = []
+        frames: list[int] = []
         prev = -1
         for i, t in enumerate(ids.tolist()):
             if t != prev and t != 0 and t < len(self.chars):
                 out.append(self.chars[t])
                 confs.append(float(probs[i]))
+                frames.append(i)
             prev = t
         if not out:
-            return "", 0.0
-        return "".join(out), float(np.mean(confs))
+            return "", 0.0, []
+        return "".join(out), float(np.mean(confs)), frames
+
+
+# ------------------------------------------------------------- word boxes
+
+def _is_cjk(ch: str) -> bool:
+    o = ord(ch)
+    return (
+        0x2E80 <= o <= 0x9FFF or 0xF900 <= o <= 0xFAFF
+        or 0xFF00 <= o <= 0xFFEF or 0x3000 <= o <= 0x303F
+    )
+
+
+def split_words(text: str, frames: list[int]) -> list[tuple[str, int, int]]:
+    """Group decoded chars into words: CJK chars stand alone, latin runs
+    group until whitespace. Returns (word, first_frame, last_frame)."""
+    words: list[tuple[str, int, int]] = []
+    cur = ""
+    f0 = f1 = -1
+    for ch, fr in zip(text, frames):
+        if ch.isspace():
+            if cur:
+                words.append((cur, f0, f1))
+                cur = ""
+            continue
+        if _is_cjk(ch):
+            if cur:
+                words.append((cur, f0, f1))
+                cur = ""
+            words.append((ch, fr, fr))
+        else:
+            if not cur:
+                cur, f0 = ch, fr
+            else:
+                cur += ch
+            f1 = fr
+    if cur:
+        words.append((cur, f0, f1))
+    return words
+
+
+def word_boxes_in_crop(
+    words: list[tuple[str, int, int]], total_frames: int,
+    crop_w: int, crop_h: int,
+) -> list[list[float]]:
+    """Frame span -> x-span boxes inside the rectified crop. Each frame
+    covers crop_w/total_frames px."""
+    if total_frames <= 0:
+        return [[0, 0, crop_w, crop_h] for _ in words]
+    px = crop_w / total_frames
+    out = []
+    for _, f0, f1 in words:
+        x0 = max(0.0, f0 * px)
+        x1 = min(float(crop_w), (f1 + 1) * px)
+        out.append([x0, 0.0, x1, float(crop_h)])
+    return out
+
+
+def perspective_points(pts: np.ndarray, m: np.ndarray) -> np.ndarray:
+    """``cv2.perspectiveTransform`` of float32 (N, 2) points by the
+    float64 homography ``m``, as OpenCV computes it: each product and
+    sum in float64, the denominator's reciprocal in float64, each result
+    rounded once to float32; a denominator within FLT_EPSILON of 0 gives
+    (0, 0)."""
+    p = np.asarray(pts, np.float32).reshape(-1, 2).astype(np.float64)
+    x, y = p[:, 0], p[:, 1]
+    m = np.asarray(m, np.float64).ravel()
+    w = x * m[6] + y * m[7] + m[8]
+    ok = np.abs(w) > np.finfo(np.float32).eps
+    inv = 1.0 / np.where(ok, w, 1.0)
+    out = np.stack([(x * m[0] + y * m[1] + m[2]) * inv,
+                    (x * m[3] + y * m[4] + m[5]) * inv], axis=1).astype(np.float32)
+    out[~ok] = 0.0
+    return out
+
+
+def map_crop_box_to_quad(
+    box: list[float], crop_w: int, crop_h: int, quad: np.ndarray
+) -> np.ndarray:
+    """Rect box in rectified-crop coords -> 4-point polygon in source-image
+    coords via the inverse of the rectification homography."""
+    quad = quad.astype(np.float32)
+    dst = np.array(
+        [[0, 0], [crop_w, 0], [crop_w, crop_h], [0, crop_h]], np.float32
+    )
+    m = perspective_transform(dst, quad)
+    x0, y0, x1, y1 = box
+    pts = np.array([[x0, y0], [x1, y0], [x1, y1], [x0, y1]], np.float32)
+    return perspective_points(pts, m)

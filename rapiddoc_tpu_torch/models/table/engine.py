@@ -11,13 +11,23 @@ a wired crop the UNet found no cells in goes to the ruling-line
 extractor (``img2table.py``). Recognized in-table formulas (``mfd``) and
 image placeholders (``fill``) land in their cells.
 
+With an OCR system (``TableRecognizer(ocr_system=...)``, as in the JAX
+package), portrait crops with vertical text are turned upright first
+(``detect_table_rotations``, one batched det call), every crop goes
+through one batched word-box OCR call, and each cell gets the words (or
+lines) it holds, CJK fragments joined without a space; blank wired cells
+can get a focused retry (``enable_blank_cell_rec``), ``use_compare_table``
+arbitrates with the OCR texts, and a table every model left empty gets
+the borderless extract from its OCR boxes. The JAX package's fallbacks
+around a failing OCR call stay for a custom OCR object; an error of the
+port's own ``TextSystem`` is raised (``fallbacks`` counts the fallbacks
+taken).
+
 The JAX package's main path builds the recognizer without an OCR system
 (``TableRecognizer.build`` passes none), so every cell holds only
-injected formulas and image placeholders; so does the port's. An OCR
-system inside tables (word boxes, rotation detection, the borderless
-extract, the blank-cell retry) raises NotImplementedError (ROADMAP
-Queue 1 item 7), as do published table checkpoints (item 17) and the
-published ONNX models (item 13).
+injected formulas and image placeholders; so does the port's. Published
+table checkpoints raise NotImplementedError (ROADMAP Queue 1 item 17),
+as do the published ONNX models (item 13).
 """
 from __future__ import annotations
 
@@ -32,7 +42,7 @@ from ...utils.unported import not_ported
 from ..weights import load_flax_into, load_npz, nest_models, random_init
 from .cls import TableClassifier, TableClsNet, heuristic_table_kind
 from .matcher import build_html_from_grid, html_from_structure_tokens, match_ocr_to_cells
-from .select import normalize_cell_text, select_best_table_html
+from .select import detect_table_rotations, normalize_cell_text, select_best_table_html
 from .slanet import SLANetConfig, SLANetModel, SLANetStructure, SLANetVocab
 from .unet import UNet, WiredTableStructure
 from .unitable import UniTableDims, UniTableModel, UniTableStructure, dims_from_variables
@@ -65,6 +75,11 @@ class TableConfig:
     # run BOTH structure models and arbitrate (reference:
     # rapid_table.py use_compare_table + select_best_table_model)
     use_compare_table: bool = False
+    # rotate portrait crops whose text is vertical before recognition
+    detect_rotation: bool = True
+    # focused per-cell OCR retry on blank wired cells (reference:
+    # rapid_table.py:36,99 enable_blank_cell_rec, default off)
+    enable_blank_cell_rec: bool = False
 
 
 def _model(module: torch.nn.Module, flat: dict | None, rng: np.random.Generator):
@@ -85,10 +100,6 @@ class TableRecognizer:
     def __init__(self, config: TableConfig | None = None, ocr_system=None,
                  variables: dict | None = None, *, device=None,
                  dtype: torch.dtype | None = None, seed: int = 0):
-        if ocr_system is not None:
-            raise not_ported(
-                "OCR inside tables (word boxes, rotation detection, the borderless "
-                "extract, the blank-cell retry)", "ocr_family")
         self.config = config or TableConfig()
         if self.config.strategy not in STRATEGIES:
             raise ValueError(
@@ -119,7 +130,8 @@ class TableRecognizer:
             self.wireless = SLANetStructure(model, **on)
         else:
             self.wireless = None
-        self.ocr = None
+        self.ocr = ocr_system
+        self.fallbacks = 0  # OCR failures a fallback absorbed (custom OCR only)
 
     @classmethod
     def build(cls, configs: dict, device=None,
@@ -148,6 +160,8 @@ class TableRecognizer:
             wireless_max_len=configs.get("wireless_max_len", 256),
             use_img2table=configs.get("use_img2table", True),
             use_compare_table=configs.get("use_compare_table", False),
+            detect_rotation=configs.get("detect_rotation", True),
+            enable_blank_cell_rec=configs.get("enable_blank_cell_rec", False),
         )
         return cls(config, variables=variables, device=device, dtype=dtype)
 
@@ -191,6 +205,12 @@ class TableRecognizer:
                     if x1 > x0 and y1 > y0:
                         crop[y0:y1, x0:x1] = 255
                 crops[i] = crop
+        if self.config.detect_rotation and self.ocr is not None:
+            rotate = detect_table_rotations(crops, getattr(self.ocr, "detector", None))
+            crops = [
+                np.ascontiguousarray(np.rot90(c, 3)) if r else c
+                for c, r in zip(crops, rotate)
+            ]
         kinds = self.kinds(crops)
         results = [""] * len(crops)
         wired_idx = [i for i, k in enumerate(kinds) if k == "wired"]
@@ -203,28 +223,94 @@ class TableRecognizer:
         if compare:
             wired_idx = list(range(len(crops)))
             wireless_idx = list(range(len(crops)))
+        # one batched word-box OCR call over every table crop, cached
+        # locally by crop index (instance state would outlive the call)
+        ocr_cache: dict[int, list] = {}
+        if self.ocr is not None:
+            need = sorted(set(wired_idx) | set(wireless_idx))
+            ocr_cache = dict(zip(need, self._ocr([crops[i] for i in need], words=True,
+                                                 default=[None] * len(need))))
         if wired_idx:
             wired_structs = self.wired.batch([crops[i] for i in wired_idx])
             for i, (cell_boxes, grid) in zip(wired_idx, wired_structs):
-                results[i] = self._finish_wired(crops[i], cell_boxes, grid, mfd[i], fill[i])
+                results[i] = self._finish_wired(crops[i], cell_boxes, grid, mfd[i], fill[i],
+                                                ocr_out=ocr_cache.get(i))
         if wireless_idx:
             structures = self.wireless(
                 [crops[i] for i in wireless_idx],
                 max_len=self.config.wireless_max_len,
             )
             for i, (structure, bboxes) in zip(wireless_idx, structures):
-                wireless_html = self._fill_text(structure, bboxes, mfd[i], fill[i])
+                wireless_html = self._fill_text(crops[i], structure, bboxes, mfd[i], fill[i],
+                                                ocr_out=ocr_cache.get(i))
                 if compare:
-                    # no OCR texts inside tables (see the module docstring)
-                    results[i] = select_best_table_html([], results[i], wireless_html)
+                    ocr_texts = self._ocr_texts(crops[i], ocr_out=ocr_cache.get(i))
+                    results[i] = select_best_table_html(ocr_texts, results[i], wireless_html)
                 else:
                     results[i] = wireless_html
+        if self.config.use_img2table and self.ocr is not None:
+            # model-free borderless fallback for tables every learned
+            # model left empty (reference: rapid_table.py:219-249)
+            from .img2table import borderless_table_extract
+
+            for i, html in enumerate(results):
+                if html and "<td" in html:
+                    continue
+                ocr_out = ocr_cache.get(i)
+                if ocr_out is None:
+                    ocr_out = self._ocr([crops[i]], default=[None])[0]
+                    if ocr_out is None:
+                        continue
+                items = []
+                for it in ocr_out:
+                    q = np.asarray(it["box"], float).reshape(-1)
+                    items.append((
+                        [q[0::2].min(), q[1::2].min(), q[0::2].max(), q[1::2].max()],
+                        it["text"],
+                    ))
+                fb = borderless_table_extract(items, crops[i].shape[:2])
+                if fb:
+                    results[i] = fb
         return results
+
+    def _ocr(self, crops: list[np.ndarray], words: bool = False, default=None,
+             catch: bool = True) -> list:
+        """The OCR system on ``crops`` (with word boxes where asked and the
+        system takes them). A custom OCR object that fails gives
+        ``default`` where the JAX package catches the failure (``catch``)
+        and is counted in ``fallbacks``; the port's own TextSystem
+        raises."""
+        from ..ocr.engine import TextSystem
+
+        own = isinstance(self.ocr, TextSystem)
+        try:
+            if words:
+                try:
+                    return self.ocr(crops, return_word_boxes=True)
+                except TypeError:  # custom OCR without word boxes
+                    if own:
+                        raise
+                    return self.ocr(crops)
+            return self.ocr(crops)
+        except Exception:
+            if own or not catch:
+                raise
+            logger.exception("table OCR failed; falling back")
+            self.fallbacks += 1
+            return default
+
+    def _ocr_texts(self, crop: np.ndarray, ocr_out=None) -> list[str]:
+        if ocr_out is not None:
+            return [it["text"] for it in ocr_out]
+        if self.ocr is None:
+            return []
+        out = self._ocr([crop], default=[[]])[0]
+        return [it["text"] for it in out]
 
     # ------------------------------------------------------------- wired
 
     def _finish_wired(self, crop: np.ndarray, cell_boxes: list, grid: list,
-                      mfd: list, fill: list) -> str:
+                      mfd: list, fill: list, ocr_out=None) -> str:
         if not cell_boxes and self.config.use_img2table:
             # model-free ruling-line fallback (reference:
             # rapid_table.py:219-249 img2table path)
@@ -233,24 +319,70 @@ class TableRecognizer:
             cell_boxes, grid = opencv_table_extract(crop)
         if not cell_boxes:
             return ""
-        return build_html_from_grid(grid, self._cell_texts(cell_boxes, mfd, fill))
+        texts = self._cell_texts(crop, cell_boxes, mfd, fill, ocr_out=ocr_out)
+        if self.config.enable_blank_cell_rec and self.ocr is not None:
+            texts = self._retry_blank_cells(crop, cell_boxes, texts)
+        return build_html_from_grid(grid, texts)
 
-    def _fill_text(self, structure: list[str], bboxes: list[list[float]],
-                   mfd: list, fill: list) -> str:
+    def _retry_blank_cells(self, crop: np.ndarray, cell_boxes: list[list[float]],
+                           texts: list[str]) -> list[str]:
+        """Focused OCR on cells the table-level pass left empty — all
+        blank cells of the table go through OCR as one batch."""
+        h, w = crop.shape[:2]
+        cells, owners = [], []
+        for k, (box, text) in enumerate(zip(cell_boxes, texts)):
+            if text.strip():
+                continue
+            x0, y0, x1, y1 = (max(int(box[0]), 0), max(int(box[1]), 0),
+                              min(int(box[2]) + 1, w), min(int(box[3]) + 1, h))
+            if x1 - x0 < 4 or y1 - y0 < 4:
+                continue
+            cells.append(crop[y0:y1, x0:x1])
+            owners.append(k)
+        if not cells:
+            return texts
+        results = self._ocr(cells)
+        if results is None:
+            return texts
+        for k, items in zip(owners, results):
+            if items:
+                texts[k] = normalize_cell_text(" ".join(it["text"] for it in items))
+        return texts
+
+    def _fill_text(self, crop: np.ndarray, structure: list[str], bboxes: list[list[float]],
+                   mfd: list, fill: list, ocr_out=None) -> str:
         if not structure:
             return ""
-        texts = self._cell_texts(bboxes, mfd, fill) if bboxes else []
+        texts = self._cell_texts(crop, bboxes, mfd, fill, ocr_out=ocr_out) if bboxes else []
         return html_from_structure_tokens(structure, texts)
 
-    @staticmethod
-    def _cell_texts(cell_boxes: list[list[float]], mfd: list, fill: list) -> list[str]:
-        """Distribute the in-table formulas (as $latex$) and image
-        placeholders into cells (reference: analyze_utils.py:491-527)."""
+    def _cell_texts(self, crop: np.ndarray, cell_boxes: list[list[float]], mfd: list,
+                    fill: list, ocr_out=None) -> list[str]:
+        """Distribute the OCR text into cells, by word boxes where the OCR
+        gives them (one line straddling a cell border splits correctly)
+        and by line boxes otherwise, with the in-table formulas (as
+        $latex$) and image placeholders (reference:
+        analyze_utils.py:491-527)."""
         if not cell_boxes:
             return []
-        if not mfd and not fill:
+        if self.ocr is None and not mfd and not fill:
             return [""] * len(cell_boxes)
-        items = [{"bbox": list(box), "text": f"${latex}$"} for box, latex in mfd]
+        if ocr_out is None:
+            ocr_out = [] if self.ocr is None else self._ocr([crop], words=True, catch=False)[0]
+        items = []
+        for it in ocr_out:
+            if it.get("words"):
+                for w in it["words"]:
+                    poly = w["poly"]
+                    items.append({"bbox": [min(p[0] for p in poly), min(p[1] for p in poly),
+                                           max(p[0] for p in poly), max(p[1] for p in poly)],
+                                  "text": w["word"]})
+            else:
+                box = it["box"]
+                items.append({"bbox": [min(p[0] for p in box), min(p[1] for p in box),
+                                       max(p[0] for p in box), max(p[1] for p in box)],
+                              "text": it["text"]})
+        items += [{"bbox": list(box), "text": f"${latex}$"} for box, latex in mfd]
         # uuid placeholder lands verbatim; resolved to <img> at save time
         items += [{"bbox": list(box), "text": uid, "raw": True} for box, uid in fill]
         assignments = match_ocr_to_cells(cell_boxes, items)

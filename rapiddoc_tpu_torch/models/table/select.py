@@ -1,16 +1,16 @@
 """Wired/wireless result arbitration + table text normalization.
 
-Copy of ``rapiddoc_tpu/models/table/select.py`` without
-``detect_table_rotations``, which needs the OCR system inside tables
-(ROADMAP Queue 1 item 7). Behavioural counterpart of the reference's
+Copy of ``rapiddoc_tpu/models/table/select.py``. Behavioural counterpart of the reference's
 table utils (rapid_doc/model/table/utils.py — count_table_cells_physical,
 select_best_table_model :80-140 decision thresholds,
-normalize_table_cell_text CJK de-spacing). stdlib-only.
+normalize_table_cell_text CJK de-spacing). numpy and the stdlib.
 """
 from __future__ import annotations
 
 import re
 from html.parser import HTMLParser
+
+import numpy as np
 
 CJK_RE = re.compile(r"[㐀-鿿]")
 CJK_PUNCT = "，。、“”‘’；：？！（）《》【】"
@@ -109,3 +109,48 @@ def select_best_table_html(
     ):
         return wireless_html
     return wired_html
+
+
+def detect_table_rotations(
+    crops: list[np.ndarray], ocr_detector
+) -> list[bool]:
+    """Portrait crops whose text boxes are mostly vertical are rotated
+    tables (reference: rapid_table.py:126-165). All portrait candidates
+    run through text det in ONE batched call; returns per-crop whether
+    it should rotate 90 degrees clockwise before recognition. A failing
+    det call means "no rotation", as in the JAX package, except for the
+    port's own TextDetector, whose failure (the card or a kernel at
+    fault) is raised."""
+    out = [False] * len(crops)
+    if ocr_detector is None:
+        return out
+    candidates = [
+        i for i, c in enumerate(crops)
+        if c.shape[1] > 0 and c.shape[0] / c.shape[1] > 1.2
+    ]
+    if not candidates:
+        return out
+    try:
+        dets = ocr_detector([crops[i] for i in candidates])
+    except Exception:
+        from ..ocr.engine import TextDetector
+
+        if isinstance(ocr_detector, TextDetector):
+            raise
+        return out
+    for i, det in zip(candidates, dets):
+        if len(det.boxes) == 0:
+            continue
+        vertical = 0
+        for quad in det.boxes:
+            bw = float(quad[:, 0].max() - quad[:, 0].min())
+            bh = float(quad[:, 1].max() - quad[:, 1].min())
+            if bh > 0 and bw / bh < 0.8:
+                vertical += 1
+        out[i] = vertical >= len(det.boxes) * 0.3
+    return out
+
+
+def detect_table_rotation(crop: np.ndarray, ocr_detector) -> bool:
+    """Single-crop convenience wrapper over detect_table_rotations."""
+    return detect_table_rotations([crop], ocr_detector)[0]

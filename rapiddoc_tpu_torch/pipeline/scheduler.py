@@ -1,6 +1,9 @@
 """Batch inference scheduler: pages -> layout dets (+OCR/formula/table fills).
 
-Port of ``rapiddoc_tpu/pipeline/scheduler.py``: ① the layout model
+Port of ``rapiddoc_tpu/pipeline/scheduler.py``: ⓪ the orientation
+classifier (pages that pass its landscape gate are turned upright before
+the other stages, and ⑥ ``_rotate_dets_back`` maps their dets back onto
+the page as given); ① the layout model
 (``demo_txt_fallback`` routes txt-mode pages of a demo-trained detector
 to the structural fallback) or, for pages without one, the structural
 fallback layout (native text blocks and image placements become dets);
@@ -17,8 +20,7 @@ LaTeX of the formulas inside them). The helpers are the JAX package's
 code, unchanged.
 
 Not ported yet, and raising NotImplementedError with its ROADMAP item
-where the JAX package would run it: orientation, checkbox detection
-and seal OCR.
+where the JAX package would run it: checkbox detection and seal OCR.
 
 Two differences of policy. Rec runs as one call, without the JAX
 package's ``_rec_with_fallback`` (a failed batch retried crop by crop,
@@ -250,6 +252,30 @@ def _split_math_bands(block: dict) -> list[tuple[str, list[dict]]]:
     return runs
 
 
+def _rotate_dets_back(dets: list[dict], angle: int, rot_w: int, rot_h: int) -> None:
+    """Map det polys from rotated-image coords back to the original page.
+
+    The page was rotated by `angle` (CCW via np.rot90 semantics) before
+    inference; rot_w/rot_h are the rotated image dims.
+    """
+    for det in dets:
+        poly = det.get("poly")
+        if not poly:
+            continue
+        pts = [(poly[i], poly[i + 1]) for i in range(0, 8, 2)]
+        if angle == 90:
+            mapped = [(rot_h - 1 - y, x) for x, y in pts]
+        elif angle == 180:
+            mapped = [(rot_w - 1 - x, rot_h - 1 - y) for x, y in pts]
+        elif angle == 270:
+            mapped = [(y, rot_w - 1 - x) for x, y in pts]
+        else:
+            continue
+        xs = [p[0] for p in mapped]
+        ys = [p[1] for p in mapped]
+        det["poly"] = _quad_poly(min(xs), min(ys), max(xs), max(ys))
+
+
 class DeferredAR:
     """Doc-scope accumulator for autoregressive work (formula LaTeX,
     table structure) collected across page windows (the JAX package's,
@@ -302,13 +328,11 @@ class DocumentAnalyzer:
         table_enable: bool = True,
         checkbox_enable: bool = False,
     ):
-        if orientation_model is not None:
-            raise not_ported("the orientation classifier", "orientation_seal")
         self.layout_model = layout_model
         self.ocr = ocr_system
         self.formula_model = formula_model
         self.table_model = table_model
-        self.orientation_model = None
+        self.orientation_model = orientation_model
         self.formula_enable = formula_enable
         self.table_enable = table_enable
         self.checkbox_enable = checkbox_enable
@@ -350,6 +374,20 @@ class DocumentAnalyzer:
         scales = scales or [1.0] * n
         image_boxes_per_page = image_boxes_per_page or [None] * n
         model_infos: list[dict] = [{"layout_dets": []} for _ in range(n)]
+
+        # ⓪ orientation: pre-rotate sideways pages, restore coords after
+        rotations = [0] * n
+        if self.orientation_model is not None:
+            from ..models.orientation.engine import rotate_image, should_check_orientation
+
+            check = [i for i in range(n) if should_check_orientation(page_images[i])]
+            if check:
+                angles = self.orientation_model([page_images[i] for i in check])
+                page_images = list(page_images)
+                for i, angle in zip(check, angles):
+                    if angle:
+                        page_images[i] = rotate_image(page_images[i], angle)
+                        rotations[i] = angle
 
         # ① layout detection. A demo-trained layout checkpoint opts out
         # of txt-mode pages (demo_txt_fallback): native-text structural
@@ -417,7 +455,13 @@ class DocumentAnalyzer:
             det.get("original_label") == "seal" and not det.get("text")
             for info in model_infos for det in info["layout_dets"]
         ):
-            raise not_ported("seal OCR", "orientation_seal")
+            raise not_ported("seal OCR", "seal")
+
+        # ⑥ restore coordinates for pre-rotated pages
+        for i, angle in enumerate(rotations):
+            if angle:
+                h, w = page_images[i].shape[:2]
+                _rotate_dets_back(model_infos[i]["layout_dets"], angle, w, h)
         return model_infos
 
     def _recover_missed_text(self, page_images, model_infos) -> None:

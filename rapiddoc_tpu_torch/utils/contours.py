@@ -17,8 +17,9 @@ OpenCV's output and order:
   contour found to the first, as OpenCV returns it.
 - ``contour_area`` (the shoelace formula, unsigned), ``arc_length``
   (closed, float32 segments), ``bounding_rect`` (inclusive pixel
-  extents) and ``approx_poly_dp`` (OpenCV's closed Douglas-Peucker with
-  its clean-up pass).
+  extents) and ``approx_poly_dp`` (OpenCV 5's closed Douglas-Peucker,
+  which measures a point's distance to a range's segment, with its
+  clean-up pass).
 """
 from __future__ import annotations
 
@@ -139,9 +140,10 @@ def bounding_rect(contour: np.ndarray) -> tuple[int, int, int, int]:
 
 def approx_poly_dp(contour: np.ndarray, epsilon: float) -> np.ndarray:
     """``cv2.approxPolyDP(contour, epsilon, closed=True)`` of integer
-    points, as OpenCV's approxPolyDP_ runs it (three passes for the
-    farthest pair, its stack of ranges, then its clean-up of points on
-    near-straight runs); (M, 1, 2) int32."""
+    points, as OpenCV 5's approxPolyDP_ runs it (three passes for the
+    farthest pair, its stack of ranges split on the point farthest from
+    the range's segment, then its clean-up of points on near-straight
+    runs); (M, 1, 2) int32."""
     src = [tuple(int(v) for v in p) for p in np.asarray(contour).reshape(-1, 2)]
     count = len(src)
     if count == 0:
@@ -169,7 +171,9 @@ def approx_poly_dp(contour: np.ndarray, epsilon: float) -> np.ndarray:
         a = pos % count
         b = (far + a) % count
         stack += [(b, a), (a, b)]
-    # 2. split each range on its farthest point from the chord
+    # 2. split each range on its point farthest from the chord, measured
+    # to the segment (a point past an end is as far as that end; a closed
+    # range measures to its one end), squared
     while stack:
         s0, s1 = stack.pop()
         end_pt = src[s1]
@@ -177,20 +181,23 @@ def approx_poly_dp(contour: np.ndarray, epsilon: float) -> np.ndarray:
         i = (s0 + 1) % count
         if i != s1:
             dx, dy = end_pt[0] - start_pt[0], end_pt[1] - start_pt[1]
+            length2 = dx * dx + dy * dy
             max_dist, split = 0.0, s0
             while i != s1:
                 pt = src[i]
-                if dx or dy:
-                    dist = abs(float((pt[1] - start_pt[1]) * dx - (pt[0] - start_pt[0]) * dy))
-                else:  # a closed range: the distance to its one end
-                    dist = float((pt[0] - start_pt[0]) ** 2 + (pt[1] - start_pt[1]) ** 2)
+                px, py = pt[0] - start_pt[0], pt[1] - start_pt[1]
+                along = px * dx + py * dy
+                if along <= 0 or length2 == 0:
+                    dist = float(px * px + py * py)
+                elif along >= length2:
+                    dist = float((pt[0] - end_pt[0]) ** 2 + (pt[1] - end_pt[1]) ** 2)
+                else:
+                    cross = px * dy - py * dx
+                    dist = cross * cross / length2
                 if dist > max_dist:
                     max_dist, split = dist, i
                 i = (i + 1) % count
-            if dx or dy:
-                le_eps = max_dist * max_dist <= eps * (dx * dx + dy * dy)
-            else:
-                le_eps = max_dist <= eps
+            le_eps = max_dist <= eps
         else:
             le_eps = True
         if le_eps:

@@ -13,9 +13,8 @@ import os
 # raises for
 ITEMS = {
     "small_resize": (5, "PIL-BILINEAR resize of small placed images"),
-    "ocr_family": (7, "the rest of the OCR family"),
     "layout": (8, "layout"),
-    "orientation_seal": (11, "orientation and seal"),
+    "seal": (11, "seal and detect_polys"),
     "pdfio": (12, "the rest of pdfio/ and pipeline/"),
     "sniff": (13, "ONNX interpreter and sniffing"),
     "host_families": (15, "the host-only families"),

@@ -13,8 +13,9 @@ page's model output and its host stages are held to the JAX package in
 ``test_torch_pipeline.py``; the full three-page JAX run is the
 generator's). Then the port, on the CPU, must give the fp32 golden's
 Markdown exactly, and in bf16 meet the limits ``chip_smoke.py`` holds
-the card's bf16 run to; and its stages that the port does not have yet
-must raise.
+the card's bf16 run to; its stages that the port does not have yet must
+raise, and those it has now (the OCR wires, orientation) must build as
+the JAX package's do.
 
 Rebuild both files with ``python tests/test_torch_api.py``; ``python
 tests/test_torch_api.py --compare`` prints the port's bf16 reading on
@@ -259,7 +260,7 @@ def test_port_builds_table_stage_as_jax_package(strategy):
     assert isinstance(got, TableRecognizer)
     assert got.ocr is None and want.ocr is None
     for field in ("strategy", "use_cls_model", "wireless_max_len", "use_img2table",
-                  "use_compare_table"):
+                  "use_compare_table", "detect_rotation", "enable_blank_cell_rec"):
         assert getattr(got.config, field) == getattr(want.config, field), field
     assert type(got.wireless).__name__ == type(want.wireless).__name__
     assert got.classifier is not None and want.classifier is not None
@@ -277,22 +278,88 @@ KNOBS = {
 @pytest.mark.parametrize("knob", sorted(KNOBS))
 def test_port_raises_for_wire_knobs_it_does_not_run(knob):
     """A wire or transfer knob the JAX package reads, set to anything but
-    its default, raises NotImplementedError naming its ROADMAP item (the
-    JAX package would give other numbers); the default value builds."""
+    its default: the OCR wires (ROADMAP item 7, ported) build the OCR
+    system with the wires the JAX package's build sets; the layout's
+    8-bit RGB wire, which the port runs only at its default, raises
+    NotImplementedError naming item 8. The default value builds."""
     import torch
+
+    from rapiddoc_tpu.models import registry as jax_registry
 
     from rapiddoc_tpu_torch.models.registry import build_analyzer
 
     value, item = KNOBS[knob]
     with held_env(RAPIDDOC_DEMO_LAYOUT="1", **{knob: value}):
         del os.environ["RAPIDDOC_DISABLE_LAYOUT"]
-        with pytest.raises(NotImplementedError, match=f"{knob}.*ROADMAP Queue 1 item {item}:"):
-            build_analyzer(formula_enable=False, table_enable=False, device="cpu",
-                           dtype=torch.float32)
+        if item == 8:
+            with pytest.raises(NotImplementedError,
+                               match=f"{knob}.*ROADMAP Queue 1 item {item}:"):
+                build_analyzer(formula_enable=False, table_enable=False, device="cpu",
+                               dtype=torch.float32)
+        else:
+            got = build_analyzer(formula_enable=False, table_enable=False, device="cpu",
+                                 dtype=torch.float32).ocr
+            want = jax_registry.build_ocr_system()
+            for stage, keys in (("detector", ("gray_transfer", "nibble_wire", "prob4_wire")),
+                                ("recognizer", ("gray_transfer", "nibble_wire"))):
+                for key in keys:
+                    assert getattr(getattr(got, stage), key) == \
+                        getattr(getattr(want, stage), key), (stage, key)
         os.environ[knob] = "" if knob == "RAPIDDOC_RGB_TRANSFER" else "4"
         analyzer = build_analyzer(formula_enable=False, table_enable=False, device="cpu",
                                   dtype=torch.float32)
     assert analyzer.layout_model is not None and analyzer.ocr is not None
+    assert analyzer.ocr.detector.nibble_wire and analyzer.ocr.recognizer.nibble_wire
+
+
+def test_port_builds_orientation_as_jax_package():
+    """USE_DOC_ORIENTATION_CLASSIFY=1 gives the analyzer the demo
+    orientation classifier, as the JAX package's registry does; without
+    it there is none."""
+    import torch
+
+    from rapiddoc_tpu.models import registry as jax_registry
+
+    from rapiddoc_tpu_torch.models.orientation.engine import OrientationClassifier
+    from rapiddoc_tpu_torch.models.registry import build_analyzer
+
+    for flag in ("1", None):
+        extra = {"USE_DOC_ORIENTATION_CLASSIFY": flag} if flag else {}
+        saved = os.environ.pop("USE_DOC_ORIENTATION_CLASSIFY", None)
+        os.environ.update(extra)
+        try:
+            with held_env():
+                got = build_analyzer(device="cpu", dtype=torch.float32).orientation_model
+                want = jax_registry.build_analyzer().orientation_model
+        finally:
+            os.environ.pop("USE_DOC_ORIENTATION_CLASSIFY", None)
+            if saved is not None:
+                os.environ["USE_DOC_ORIENTATION_CLASSIFY"] = saved
+        assert (got is None) == (want is None) == (flag is None)
+        if flag:
+            assert isinstance(got, OrientationClassifier)
+
+
+def test_port_raises_for_seal_ocr():
+    """Seal OCR and the curved-text det it needs still raise, naming
+    ROADMAP item 11 (seal and detect_polys)."""
+    import torch
+
+    from rapiddoc_tpu_torch.models.registry import build_ocr_system
+    from rapiddoc_tpu_torch.pipeline.scheduler import DocumentAnalyzer
+
+    ocr = build_ocr_system(device="cpu", dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11: seal and detect_polys"):
+        ocr.detector.detect_polys([np.full((64, 64, 3), 255, np.uint8)])
+
+    class SealLayout:
+        def batch_predict(self, pages):
+            return [[{"category_id": 1, "original_label": "seal", "score": 0.9,
+                      "poly": [2, 2, 40, 2, 40, 40, 2, 40]}] for _ in pages]
+
+    analyzer = DocumentAnalyzer(layout_model=SealLayout(), ocr_system=ocr)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11:"):
+        analyzer.analyze_pages([np.full((64, 64, 3), 255, np.uint8)], ["txt"], [None])
 
 
 @pytest.mark.parametrize("stage", ["LAYOUT", "LAYOUT_DEMO", "FORMULA"])

@@ -14,12 +14,9 @@ package (and OpenCV, which the JAX package calls), on the CPU.
   simple fractions; none on the page case).
 - The contour functions against cv2 on 240 seeded random and structured
   masks: ``findContours(RETR_EXTERNAL, CHAIN_APPROX_SIMPLE)``,
-  ``contourArea``, ``arcLength`` and ``boundingRect`` equal on every
-  contour; ``approxPolyDP`` equal on at least 98 % of the (contour,
-  epsilon) pairs (5786 of 5796 when written: on a few degenerate
-  contours that double back on themselves OpenCV 5.0 splits elsewhere;
-  ROADMAP Queue 3), and ``mask_to_polygon`` on at least 97 % of masks
-  (198 of 200).
+  ``contourArea``, ``arcLength``, ``boundingRect`` and ``approxPolyDP``
+  equal on every contour and every (contour, epsilon) pair (5796), and
+  ``mask_to_polygon`` equal on all 200 masks.
 - ``mask_to_polygon``, ``class_nms`` and ``_postprocess`` against the
   JAX package's on the same inputs; ``ms_deform_sample`` against the JAX
   one with locations past every border.
@@ -215,7 +212,7 @@ def test_contours_equal_cv2():
                 pairs += 1
                 equal += np.array_equal(C.approx_poly_dp(c, eps), cv2.approxPolyDP(c, eps, True))
     assert pairs > 1000
-    assert equal >= 0.98 * pairs, (equal, pairs)
+    assert equal == pairs, (equal, pairs)
 
 
 def test_mask_to_polygon_matches_jax_package():
@@ -231,7 +228,7 @@ def test_mask_to_polygon_matches_jax_package():
         checked += 1
         equal += got == want
         assert (got is None) == (want is None)
-    assert equal >= 0.97 * checked, (equal, checked)
+    assert equal == checked == 200, (equal, checked)
 
 
 # ------------------------------------------------------ postprocess and NMS

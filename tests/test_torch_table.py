@@ -595,13 +595,13 @@ def test_in_table_formula_and_image_injection():
     from rapiddoc_tpu_torch.types import ContentType
     from rapiddoc_tpu_torch.utils.images import cut_span_images
 
-    texts = TableRecognizer._cell_texts(
-        [[0, 0, 100, 50], [100, 0, 200, 50]],
+    rec = TableRecognizer(TableConfig(strategy="unet"), device="cpu", dtype=torch.float32)
+    texts = rec._cell_texts(
+        None, [[0, 0, 100, 50], [100, 0, 200, 50]],
         [([110.0, 10.0, 190.0, 40.0], "x^2+y^2")], [])
     assert texts == ["", "$x^2+y^2$"]
     img = _grid_image(rows=(20, 128, 236), cols=(20, 128, 236), size=(256, 256))
     img[150:220, 150:220] = 64  # a "photo" in the bottom-right cell
-    rec = TableRecognizer(TableConfig(strategy="unet"), device="cpu", dtype=torch.float32)
     # the structure comes from the ruling lines (random UNet weights find
     # no cells, so img2table runs), the texts from the injected items
     uid = "f" * 32
