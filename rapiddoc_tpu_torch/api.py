@@ -22,11 +22,21 @@ outputs are the JAX package's; the port adds its ``device`` (the card by
 default) and ``dtype`` (bf16 by default) arguments. Windows render
 serially (the JAX package's process pool renders the same pages).
 
-Image, Office, URL and sniffed inputs, batched parsing across documents
-and ``extract_original_image`` raise NotImplementedError naming their
-ROADMAP items. A page whose page object is broken renders as a blank
-page, as in the JAX package; anything the port's renderer cannot draw
-raises.
+Image inputs (a PNG or JPEG path or bytes, or a uint8 (H, W) or (H, W,
+3|4) array) become a one-page PDF through ``pdfio.writer.images_to_pdf``
+at the render dpi, as in the JAX package (an array is embedded directly:
+the JAX package's PNG round trip is lossless). ``parse_batch`` (and a
+call with several documents and no output dir or overrides) batches
+pages across documents, with a ``DeferredAR`` across its chunks.
+``image_config={"extract_original_image": True}`` keeps an embedded
+image's own pixels for an image span that matches it.
+
+Office, URL and sniffed inputs, and the image formats and PIL images the
+port does not decode, raise NotImplementedError naming their ROADMAP
+items. A page whose page object is broken renders as a blank page, as in
+the JAX package; anything the port's renderer cannot draw raises, and so
+does an embedded image that the port cannot decode for
+``extract_original_image`` (the JAX package logs it and uses the crop).
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ import torch
 
 from . import pdfio
 from .config import (
+    env_int,
     env_str,
     formula_enable_default,
     get_pdf_render_dpi,
@@ -52,6 +63,9 @@ from .config import (
     table_enable_default,
 )
 from .data.io import DataWriter, FanoutDataWriter, FileBasedDataWriter, MemoryDataWriter
+from .pdfio.images import xobject_to_array
+from .pdfio.placements import original_image_streams
+from .pdfio.writer import images_to_pdf
 from .pipeline.middle import build_page_infos, finalize_middle_json
 from .pipeline.mkcontent import union_make
 from .pipeline.scheduler import DeferredAR
@@ -221,16 +235,17 @@ class RapidDoc:
     ) -> RapidDocOutput | list[RapidDocOutput]:
         if isinstance(inputs, (bytearray, memoryview)):
             inputs = bytes(inputs)
-        if isinstance(inputs, np.ndarray):
-            raise not_ported("image inputs", "pdfio")
-        if isinstance(inputs, (str, bytes, Path)):
+        # an array dispatches before the iterable branch (an HxWx3 array
+        # is iterable row-wise)
+        if isinstance(inputs, (str, bytes, Path, np.ndarray)):
             return self._parse_single(inputs, output_dir, **overrides)
         if output_dir is None and not overrides:
-            raise not_ported("batched parsing across documents (parse_batch)", "pdfio")
+            # several documents batch their pages across documents
+            return self.parse_batch(inputs)
         return [self._parse_single(item, output_dir, **overrides) for item in inputs]
 
     def _parse_single(
-        self, item: str | bytes | Path, output_dir: str | Path | None, **overrides
+        self, item: str | bytes | Path | np.ndarray, output_dir: str | Path | None, **overrides
     ) -> RapidDocOutput:
         pdf_bytes, name = self._normalize_input(item)
         return self._parse_pipeline(pdf_bytes, name, output_dir, **overrides)
@@ -245,8 +260,6 @@ class RapidDoc:
         if parse_method == "auto":
             parse_method = pdfio.classify_pdf(pdf_bytes)
         logger.info("parsing %s as %s", name, parse_method)
-        if self.image_config.get("extract_original_image"):
-            raise not_ported("extract_original_image", "pdfio")
 
         mem_writer = MemoryDataWriter(self.image_dir_name)
         writers: list[DataWriter] = [mem_writer]
@@ -304,15 +317,17 @@ class RapidDoc:
         ckpt = resolve_checkpoint(
             self.checkpoint_dir, pdf_bytes, parse_method, dpi, window
         )
+        want_originals = bool(self.image_config.get("extract_original_image"))
         starts = list(range(0, n_pages, window))
 
-        def assemble_window(start, infos, dims, w_imgs, w_text):
+        def assemble_window(start, infos, dims, w_imgs, w_text, originals):
             with stage_timer("assembly", len(infos)):
                 return build_page_infos(
                     infos, dims, [scale] * len(infos),
                     page_imgs=w_imgs, page_text_dicts=w_text,
                     parse_mode=parse_method, image_writer=image_writer,
-                    page_idx_offset=start, image_config=self.image_config,
+                    page_idx_offset=start, originals_per_page=originals,
+                    image_config=self.image_config,
                 )
 
         # doc-wide AR packing: formula regions accumulate across windows
@@ -350,7 +365,11 @@ class RapidDoc:
                         ckpt.save(start, infos)
                 else:
                     logger.info("window %d resumed from checkpoint", start)
-                args = (start, infos, dims, w_imgs, w_text)
+                originals = (
+                    _collect_original_images(doc, len(w_imgs), first_page=start)
+                    if want_originals else None
+                )
+                args = (start, infos, dims, w_imgs, w_text, originals)
                 if deferred is not None and deferred.window_added() > 0:
                     pending_asm.append(args)
                 elif pending_asm:
@@ -374,16 +393,7 @@ class RapidDoc:
         with stage_timer("assembly_final", n_pages):
             middle_json = finalize_middle_json(page_infos, parse_method)
 
-        img_prefix = self.image_dir_name
-        markdown = union_make(middle_json["pdf_info"], self.make_md_mode, img_prefix)
-        content_list = union_make(
-            middle_json["pdf_info"], MakeMode.CONTENT_LIST, img_prefix
-        )
-        images = {
-            f"{self.image_dir_name}/{k}": v for k, v in mem_writer.data.items()
-        }
-        if self.image_output_mode == "data_uri":
-            markdown = self._embed_data_uris(markdown, images)
+        markdown, content_list, images = self._outputs(middle_json, mem_writer)
 
         if out_dir:
             md_writer = FileBasedDataWriter(str(Path(out_dir) / name))
@@ -413,6 +423,95 @@ class RapidDoc:
             model_json=all_model_infos,
             stage_report=report,
         )
+
+    # -------------------------------------------------------- batch parse
+
+    def parse_batch(self, inputs: Iterable) -> list[RapidDocOutput]:
+        """Parse many documents with their pages batched across documents
+        (shared chunks of ``MIN_BATCH_INFERENCE_SIZE`` pages, at least the
+        window size), formula and table regions packed across chunks in a
+        ``DeferredAR``. Per-window checkpoints, writers and original
+        images apply to the single-document path only, as in the JAX
+        package."""
+        items = list(inputs)
+        docs: list[tuple[bytes, str]] = []  # (pdf_bytes, parse mode)
+        for item in items:
+            pdf_bytes, _ = self._normalize_input(item)
+            mode = self.parse_method
+            if mode == "auto":
+                mode = pdfio.classify_pdf(pdf_bytes)
+            docs.append((pdf_bytes, mode))
+        if not docs:
+            return []
+        stack = self._stack()
+        dpi = get_pdf_render_dpi()
+        scale = dpi / 72.0
+        super_batch = max(self.pdf_pages_batch, env_int("MIN_BATCH_INFERENCE_SIZE", 384))
+        opened = [(pdfio.open_pdf(b), mode) for b, mode in docs]
+        tasks = [(k, page_i) for k, (doc, _) in enumerate(opened) for page_i in range(len(doc))]
+        per_doc: dict[int, dict[int, tuple]] = {k: {} for k in range(len(opened))}
+        # assembly comes after every chunk, so no window gating is needed
+        batch_deferred = DeferredAR() if len(tasks) > super_batch else None
+        for c0 in range(0, len(tasks), super_batch):
+            imgs, modes, tdicts, boxes_l, keys = [], [], [], [], []
+            for k, page_i in tasks[c0 : c0 + super_batch]:
+                doc, mode = opened[k]
+                try:
+                    page = doc.get_page(page_i)
+                    dims = page.size
+                except Exception:
+                    # a broken page object becomes a blank placeholder
+                    logger.exception("page %d failed to render", page_i)
+                    img = np.full((int(792 * scale), int(612 * scale), 3), 255, np.uint8)
+                    tdict, boxes, dims = None, [], (612.0, 792.0)
+                else:
+                    img, tdict, boxes = pdfio.render_page_full(
+                        page, dpi=dpi, with_text=(mode == "txt")
+                    )
+                imgs.append(img)
+                modes.append(mode)
+                tdicts.append(tdict)
+                boxes_l.append(boxes)
+                keys.append((k, page_i, dims))
+            infos = stack.analyzer.analyze_pages(
+                imgs, modes, tdicts, boxes_l, [scale] * len(imgs), deferred=batch_deferred,
+            )
+            if batch_deferred is not None and batch_deferred.should_flush():
+                stack.analyzer.flush_deferred(batch_deferred)
+            for (k, page_i, dims), info, img, tdict in zip(keys, infos, imgs, tdicts):
+                per_doc[k][page_i] = (info, dims, img, tdict)
+        if batch_deferred is not None:
+            stack.analyzer.flush_deferred(batch_deferred)
+
+        outputs = []
+        for k, (doc, mode) in enumerate(opened):
+            pages = [per_doc[k][i] for i in sorted(per_doc[k])]
+            mem_writer = MemoryDataWriter(self.image_dir_name)
+            middle_json = finalize_middle_json(build_page_infos(
+                [p[0] for p in pages], [p[1] for p in pages], [scale] * len(pages),
+                page_imgs=[p[2] for p in pages], page_text_dicts=[p[3] for p in pages],
+                parse_mode=mode, image_writer=mem_writer,
+            ), mode)
+            markdown, content_list, images = self._outputs(middle_json, mem_writer)
+            outputs.append(RapidDocOutput(
+                markdown=markdown,
+                images=images,
+                middle_json=middle_json,
+                content_list_json=content_list,
+                model_json=[p[0] for p in pages],
+                stage_report=GLOBAL_TRACER.report(),
+            ))
+        return outputs
+
+    def _outputs(self, middle_json: dict, mem_writer: MemoryDataWriter) -> tuple[str, list, dict]:
+        """Markdown, content list and payloads by name of a parse."""
+        prefix = self.image_dir_name
+        markdown = union_make(middle_json["pdf_info"], self.make_md_mode, prefix)
+        content_list = union_make(middle_json["pdf_info"], MakeMode.CONTENT_LIST, prefix)
+        images = {f"{prefix}/{k}": v for k, v in mem_writer.data.items()}
+        if self.image_output_mode == "data_uri":
+            markdown = self._embed_data_uris(markdown, images)
+        return markdown, content_list, images
 
     @staticmethod
     def _image_mime(data: bytes) -> str:
@@ -450,9 +549,12 @@ class RapidDoc:
 
     # --------------------------------------------------------------- input
 
-    def _normalize_input(self, item: str | bytes | Path) -> tuple[bytes, str]:
-        """(pdf_bytes, doc_name); raises for the inputs the JAX package
-        turns into PDF bytes or routes to its office path."""
+    def _normalize_input(self, item: str | bytes | Path | np.ndarray) -> tuple[bytes, str]:
+        """(pdf_bytes, doc_name): a PDF as it is, an image file or array as
+        a one-page PDF at the render dpi; raises for the inputs the JAX
+        package routes to its office path or fetches."""
+        if isinstance(item, np.ndarray):
+            return images_to_pdf([item], dpi=get_pdf_render_dpi()), "image"
         if isinstance(item, (str, Path)):
             s = str(item)
             if s.startswith(("http://", "https://")):
@@ -468,7 +570,7 @@ class RapidDoc:
         if suffix in office_suffixes + old_office_suffixes or _sniff_office(data):
             raise not_ported("Office documents", "host_families")
         if suffix in image_suffixes or _sniff_image(data):
-            raise not_ported("image inputs", "pdfio")
+            return images_to_pdf([data], dpi=get_pdf_render_dpi()), stem
         known = image_suffixes + office_suffixes + old_office_suffixes + (".pdf",)
         if suffix not in known and data[:4] != b"%PDF":
             raise not_ported("content sniffing of inputs without a suffix", "sniff")
@@ -486,3 +588,17 @@ def _sniff_office(data: bytes) -> bool:
         return False
     head = data[:4096]
     return b"word/" in head or b"ppt/" in head or b"xl/" in head
+
+
+def _collect_original_images(doc, n_pages: int, first_page: int = 0) -> list:
+    """Per page: (bbox in page units, decoded RGB pixels) of each embedded
+    image (``pdfio.images.xobject_to_array``, grey repeated in RGB)."""
+    out = []
+    for i in range(first_page, first_page + n_pages):
+        items = []
+        for bbox, stream in original_image_streams(doc.get_page(i)):
+            img = xobject_to_array(doc, stream)
+            if img is not None:
+                items.append((bbox, np.repeat(img[..., None], 3, 2) if img.ndim == 2 else img))
+        out.append(items)
+    return out

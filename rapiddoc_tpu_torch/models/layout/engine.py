@@ -6,8 +6,8 @@ Port of ``rapiddoc_tpu/models/layout/engine.py``: ``DOCLAYOUT_V2_LABELS``,
 ``LayoutDetector`` (:144) with its ``build`` (:195). Pages are resized
 to the model's square input with ``resize_cubic`` (cv2's INTER_CUBIC),
 sent as 4-bit luma (two pixels a byte) and unpacked on the device, as
-the JAX package's default nibble wire does (its
-``RAPIDDOC_LAYOUT_WIRE_BITS=8`` RGB wire is not ported and raises). The
+the JAX package's default nibble wire does, or as RGB uint8 under
+``RAPIDDOC_LAYOUT_WIRE_BITS=8`` (its RGB wire). The
 postprocess (per-class thresholds, NMS with separate same-class and
 cross-class IoU, masks to polygons) is the JAX package's, with cv2's
 contour functions replaced by ``utils/contours.py``.
@@ -33,7 +33,7 @@ from ...types import CategoryId
 from ...utils import boxes as B
 from ...utils import contours
 from ...utils.logging import get_logger
-from ...utils.unported import check_knob, not_ported
+from ...utils.unported import not_ported
 from ..ocr.pre_post import pack_nibbles, resize_cubic, to_luma
 from ..weights import load_flax_into, load_npz
 from .rtdetr import RTDETR
@@ -171,6 +171,11 @@ def _unpack_luma_nibbles(x: torch.Tensor) -> torch.Tensor:
     return y.expand(-1, -1, -1, 3).float() / 255.0
 
 
+def _rgb_unit(x: torch.Tensor) -> torch.Tensor:
+    """(N, H, W, 3) uint8 -> float32 in [0, 1]."""
+    return x.float() / 255.0
+
+
 class LayoutDetector:
     """Batched RT-DETR layout detection; output dets in image pixels."""
 
@@ -180,9 +185,9 @@ class LayoutDetector:
                  *, device=None, dtype: torch.dtype | None = None, seed: int = 0):
         """``model`` with its weights loaded, or None for a random init
         from ``seed`` (torch's default initialisers)."""
-        # the JAX package's RAPIDDOC_LAYOUT_WIRE_BITS=8 RGB wire
-        # (layout/engine.py:172-178); the port runs the 4-bit luma wire
-        check_knob("RAPIDDOC_LAYOUT_WIRE_BITS", "the layout's 8-bit RGB wire", "layout", "4")
+        # 4-bit luma wire by default; RAPIDDOC_LAYOUT_WIRE_BITS=8 ships
+        # RGB uint8 (the JAX package's layout/engine.py:172-178)
+        self.nibble_wire = os.environ.get("RAPIDDOC_LAYOUT_WIRE_BITS", "4") == "4"
         self.config = cfg = config or LayoutConfig()
         self.labels = DOCLAYOUT_V2_LABELS
         if model is None:
@@ -192,7 +197,7 @@ class LayoutDetector:
                           batch_sizes=(1, 2, 4, 8))
         self.session = TorchSession(
             lambda m, x: m(x), model, spec, name="layout", device=device, dtype=dtype,
-            preproc=_unpack_luma_nibbles,
+            preproc=_unpack_luma_nibbles if self.nibble_wire else _rgb_unit,
         )
 
     @staticmethod
@@ -261,10 +266,12 @@ class LayoutDetector:
     def preprocess(self, images: list[np.ndarray]) -> np.ndarray:
         """The uint8 batch the session ships: each page resized to the
         square input with INTER_CUBIC, as 4-bit luma pairs (6x fewer
-        bytes than RGB)."""
+        bytes than RGB) or, on the 8-bit wire, as RGB."""
         size = self.config.input_size
-        return np.stack([pack_nibbles(to_luma(resize_cubic(img, size, size)))
-                         for img in images])
+        resized = [resize_cubic(img, size, size) for img in images]
+        if self.nibble_wire:
+            resized = [pack_nibbles(to_luma(r)) for r in resized]
+        return np.stack(resized)
 
     def batch_predict(self, images: list[np.ndarray]) -> list[list[dict]]:
         """images: uint8 RGB arrays. Returns per-image layout_dets

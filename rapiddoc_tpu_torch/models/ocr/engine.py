@@ -8,7 +8,8 @@ full-depth luma, ``RAPIDDOC_RGB_TRANSFER=1`` full-depth RGB); det reads
 back a bit-packed threshold map and a 2x-pooled prob map in 4 bits
 (``RAPIDDOC_DET_PROB_BITS=8``: 8 bits); rec returns per-frame (ids,
 probs) from the fused CTC head. ``TextSystem(..., return_word_boxes=True)``
-adds each line's word polygons.
+adds each line's word polygons; ``TextDetector.detect_polys`` gives the
+curved-text polygons seal OCR straightens.
 """
 from __future__ import annotations
 
@@ -22,13 +23,13 @@ import torch
 
 from ...engine.buckets import DET_BUCKETS, REC_BUCKETS, group_by_bucket, pad_image_to
 from ...engine.session import TorchSession
-from ...utils.unported import not_ported
 from .det import DBNet
 from .pre_post import (
     CTCLabelDecoder,
     DBPostParams,
     contrast_stretch as pp_contrast_stretch,
     db_postprocess,
+    db_postprocess_poly,
     det_normalize_device,
     det_normalize_device_nibble,
     det_resize,
@@ -119,11 +120,31 @@ class TextDetector:
 
     def detect_polys(self, images: Sequence[np.ndarray], params=None,
                      n_points: int = 8) -> list[list[np.ndarray]]:
-        """Curved-text detection for seal crops (the JAX package's
-        ``db_postprocess_poly``): not ported yet."""
-        raise not_ported("TextDetector.detect_polys (curved-text detection)", "seal")
+        """Curved-text detection: per image, a list of 2k-point polygons
+        (top edge left to right, then bottom edge right to left) in source
+        pixels, from ``db_postprocess_poly``. Pass the seal params
+        (``models/ocr/seal.SEAL_DET_PARAMS``) for stamp crops."""
+        results: list[list[np.ndarray]] = [[] for _ in images]
+        for i, prob, (src_h, src_w, rh, rw) in self._prob_maps(images):
+            results[i], _ = db_postprocess_poly(
+                prob, src_h, src_w, valid_h=rh, valid_w=rw,
+                params=params or self.post_params, n_points=n_points,
+            )
+        return results
 
     def _detect(self, images: Sequence[np.ndarray]) -> list[DetResult]:
+        results: list[DetResult | None] = [None] * len(images)
+        for i, prob, (src_h, src_w, rh, rw) in self._prob_maps(images):
+            boxes, scores = db_postprocess(
+                prob, src_h, src_w, valid_h=rh, valid_w=rw, params=self.post_params,
+            )
+            results[i] = DetResult(boxes, scores)
+        return results  # type: ignore[return-value]
+
+    def _prob_maps(self, images: Sequence[np.ndarray]):
+        """Yield (index, prob map at network scale, (src_h, src_w, rh,
+        rw)) for each image: resized, grouped by bucket, every group
+        dispatched before any is fetched."""
         prepped = []
         metas = []
         for img in images:
@@ -136,7 +157,6 @@ class TextDetector:
             prepped.append(resized)  # uint8; normalize happens on device
         spec = self.session.bucket_spec
         groups = group_by_bucket([(m[2], m[3]) for m in metas], spec)
-        results: list[DetResult | None] = [None] * len(images)
         max_b = spec.max_batch()
         pending = []
         for (bh, bw), idxs in groups.items():
@@ -150,13 +170,7 @@ class TextDetector:
             pending.append((idxs, handles))
         for idxs, handles in pending:
             for i, out in zip(idxs, self.session.fetch_rows(handles)):
-                src_h, src_w, rh, rw = metas[i]
-                boxes, scores = db_postprocess(
-                    self._reconstruct_prob(out), src_h, src_w,
-                    valid_h=rh, valid_w=rw, params=self.post_params,
-                )
-                results[i] = DetResult(boxes, scores)
-        return results  # type: ignore[return-value]
+                yield i, self._reconstruct_prob(out), metas[i]
 
     def _refine_merged(
         self, images: Sequence[np.ndarray], results: list[DetResult]

@@ -23,6 +23,14 @@ scipy, written to give OpenCV's results:
 - ``perspective_transform`` and ``perspective_points`` reproduce
   ``getPerspectiveTransform`` and ``perspectiveTransform`` (float32
   points), which map word boxes back onto a line's quad.
+- ``resize_area`` reproduces INTER_AREA, enlarging axes included.
+- ``warp_perspective``, ``warp_affine`` (with ``rotation_matrix_2d``),
+  ``remap_linear`` and ``warp_polar_linear`` reproduce OpenCV 5.0's
+  linear warps (``_blend``, with a constant border), for crops and seal
+  OCR; ``OpenCVError`` stands for ``cv2.error`` where OpenCV raises.
+- ``db_postprocess_poly`` (curved text, seal OCR) traces contours with
+  their points (``utils/contours.find_contours_list``), where the quad
+  postprocess only needs their hulls.
 
 The DB postprocess, the CTC decoder and the other helpers are the JAX
 package's code, unchanged.
@@ -44,12 +52,22 @@ IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
 _RESIZE_BITS = 11  # OpenCV's INTER_RESIZE_COEF_BITS
 
 
-def _linear_taps(src: int, dst: int):
-    """OpenCV's per-axis source index pairs and 11-bit weights."""
-    scale = 1.0 / (dst / src)
-    f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
-    i0 = np.floor(f).astype(np.int64)
-    f = (f - i0.astype(np.float32)).astype(np.float32)
+def _linear_taps(src: int, dst: int, area: bool = False):
+    """OpenCV's per-axis source index pairs and 11-bit weights; ``area``:
+    the coefficients INTER_AREA takes when it enlarges an axis (source
+    index floor(d * scale), weight of the second tap the fractional part
+    of (d + 1) - (index + 1) / scale, or 0 where that is not positive)."""
+    inv_scale = dst / src
+    scale = 1.0 / inv_scale
+    d = np.arange(dst)
+    if area:
+        i0 = np.floor(d * scale).astype(np.int64)
+        f = ((d + 1) - (i0 + 1) * inv_scale).astype(np.float32)
+        f = np.where(f <= 0, np.float32(0), f - np.floor(f)).astype(np.float32)
+    else:
+        f = ((d + 0.5) * scale - 0.5).astype(np.float32)
+        i0 = np.floor(f).astype(np.int64)
+        f = (f - i0.astype(np.float32)).astype(np.float32)
     # past an edge both taps read the edge pixel, with the weights kept
     i1 = np.clip(i0 + 1, 0, src - 1)
     i0 = np.clip(i0, 0, src - 1)
@@ -59,19 +77,20 @@ def _linear_taps(src: int, dst: int):
     return i0, i1, w0, w1
 
 
-def resize_linear(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+def resize_linear(img: np.ndarray, out_w: int, out_h: int, area: bool = False) -> np.ndarray:
     """``cv2.resize(img, (out_w, out_h))`` (INTER_LINEAR) for uint8 HW or
-    HWC images, bit for bit."""
+    HWC images, bit for bit; ``area``: OpenCV's INTER_AREA where it
+    enlarges an axis, the same blend over ``_linear_taps(area=True)``."""
     h, w = img.shape[:2]
     if (h, w) == (out_h, out_w):
         return img.copy()
-    if w == 2 * out_w and h == 2 * out_h:
+    if w == 2 * out_w and h == 2 * out_h and not area:
         # OpenCV runs an exact 2x downscale as the 2x2 box filter
         s = img.astype(np.int32)
         q = s[0::2, 0::2] + s[0::2, 1::2] + s[1::2, 0::2] + s[1::2, 1::2]
         return ((q + 2) >> 2).astype(np.uint8)
-    x0, x1, a0, a1 = _linear_taps(w, out_w)
-    y0, y1, b0, b1 = _linear_taps(h, out_h)
+    x0, x1, a0, a1 = _linear_taps(w, out_w, area)
+    y0, y1, b0, b1 = _linear_taps(h, out_h, area)
     # int32 holds every step: a tap sum is at most 255 << 11, and a row
     # weight (at most 1 << 11) times a tap sum >> 4 stays under 1 << 27
     extra = (None,) * (img.ndim - 2)
@@ -117,16 +136,15 @@ def _area_taps(src: int, dst: int, scale: float):
 
 def resize_area(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
     """``cv2.resize(img, (out_w, out_h), interpolation=INTER_AREA)`` for
-    uint8 HW or HWC images that shrink along both axes, bit for bit: an
-    exact 2x as the rounded 2x2 box, another integer factor as OpenCV's
-    float32 box mean, any other factor as its float32 area weights,
-    summed in its order (along x per source row, then the rows)."""
+    uint8 HW or HWC images, bit for bit: an exact 2x as the rounded 2x2
+    box, another integer factor as OpenCV's float32 box mean, any other
+    factor as its float32 area weights, summed in its order (along x per
+    source row, then the rows); where an axis is enlarged, OpenCV's
+    linear path with area coefficients (``resize_linear(area=True)``)."""
     h, w = img.shape[:2]
     scale_x, scale_y = w / out_w, h / out_h
     if scale_x < 1 or scale_y < 1:
-        from ...utils.unported import not_ported
-
-        raise not_ported("INTER_AREA resizing that enlarges an axis", "pdfio")
+        return resize_linear(img, out_w, out_h, area=True)
     ix, iy = round(scale_x), round(scale_y)
     src = img.reshape(h, w, -1)
     if abs(scale_x - ix) < 2.220446049250313e-16 and abs(scale_y - iy) < 2.220446049250313e-16:
@@ -794,6 +812,82 @@ def db_postprocess(
     return np.stack(boxes), np.asarray(scores, dtype=np.float32)
 
 
+def db_postprocess_poly(
+    prob_map: np.ndarray,
+    src_h: int,
+    src_w: int,
+    valid_h: int | None = None,
+    valid_w: int | None = None,
+    params: DBPostParams | None = None,
+    n_points: int = 8,
+) -> tuple[list[np.ndarray], np.ndarray]:
+    """DB prob map -> 2k-point text polygons (curved-text mode): the JAX
+    package's ``db_postprocess_poly``. Each contour of
+    ``findContours(RETR_LIST, CHAIN_APPROX_SIMPLE)`` (``find_contours_list``)
+    is filled (``fill_poly_mask``, as ``drawContours(thickness=-1)``),
+    scored over that mask, grown by an elliptical dilation of about
+    ``unclip_ratio`` times its thickness (``dilate_ellipse``) and sampled
+    at ``n_points`` columns: the first k points trace the top edge left to
+    right, the last k the bottom edge right to left. Near-vertical or
+    degenerate components give the unclipped minAreaRect quad. Returns
+    (list of (2k, 2) float32 polys in source pixels, scores)."""
+    from ...utils.contours import bounding_rect, find_contours_list
+    from ...utils.morph import dilate_ellipse
+
+    p = params or DBPostParams()
+    prob = prob_map[..., 0] if prob_map.ndim == 3 else prob_map
+    if valid_h is not None:
+        prob = prob[:valid_h, :valid_w]
+    seg = prob > p.thresh
+    if p.use_dilation:
+        seg = _dilate_2x2(seg)
+    contours = find_contours_list(seg)
+    h, w = prob.shape
+    scale_x = src_w / w
+    scale_y = src_h / h
+    polys: list[np.ndarray] = []
+    scores = []
+    for contour, hole in contours[: p.max_candidates]:
+        rect = min_area_rect(contour, outer=not hole)
+        if min(rect[1]) < p.min_size:
+            continue
+        x, y, cw, chh = bounding_rect(contour)
+        mask = fill_poly_mask((chh, cw), contour.reshape(-1, 2) - [x, y]).astype(np.uint8)
+        # score over the component mask, not the minAreaRect (an arc's
+        # rect is mostly background)
+        region = prob[y : y + chh, x : x + cw]
+        denom = float(mask.sum())
+        score = float((region * mask).sum() / denom) if denom else 0.0
+        if score < p.box_thresh:
+            continue
+        # unclip: pad the component outward by ~unclip_ratio x thickness
+        thickness = max(1.0, float(mask.sum()) / max(cw, 1))
+        pad = max(1, int(round(thickness * p.unclip_ratio)))
+        mask = dilate_ellipse(np.pad(mask, pad), 2 * pad + 1)
+        cols = np.where(mask.any(axis=0))[0]
+        if len(cols) < 2 or cw < chh:  # degenerate / vertical: quad path
+            poly = _order_quad(box_points(_unclip_rect(rect, p.unclip_ratio)))
+        else:
+            sample_x = np.linspace(cols[0], cols[-1], n_points)
+            top_pts, bot_pts = [], []
+            for sx in sample_x:
+                ys = np.where(mask[:, int(round(sx))])[0]
+                if len(ys):  # a gap inside the band is left out
+                    top_pts.append((sx, float(ys[0])))
+                    bot_pts.append((sx, float(ys[-1])))
+            if len(top_pts) < 2:
+                continue
+            top = np.asarray(top_pts, np.float32)
+            bot = np.asarray(bot_pts, np.float32)
+            poly = np.concatenate([top, bot[::-1]], axis=0)
+            poly += [x - pad, y - pad]
+        poly[:, 0] = np.clip(poly[:, 0] * scale_x, 0, src_w)
+        poly[:, 1] = np.clip(poly[:, 1] * scale_y, 0, src_h)
+        polys.append(poly.astype(np.float32))
+        scores.append(score)
+    return polys, np.asarray(scores, dtype=np.float32)
+
+
 # ------------------------------------------------------------------ rec pre
 
 REC_HEIGHT = 48
@@ -911,46 +1005,55 @@ def _fma32(a: np.ndarray, b, c: np.ndarray) -> np.ndarray:
     return r
 
 
-def warp_perspective(img: np.ndarray, m: np.ndarray, w: int, h: int) -> np.ndarray:
-    """``cv2.warpPerspective(img, m, (w, h))`` for uint8 HWC images
-    (INTER_LINEAR, constant zero border), bit for bit as OpenCV 5.0's
-    linear warp kernel computes it on an x86 host with AVX2:
-
-    - the inverse homography in float64 (OpenCV's closed-form 3x3
-      inverse), then cast to float32;
-    - each output pixel (x, y) maps back in float32. In the vector
-      columns (whole steps of WARP_VECTOR_COLUMNS) the row term
-      ``y * m1 + m2`` is rounded first and ``fma(x, m0, row)`` once; in
-      the scalar tail ``fma(x, m0, y * m1) + m2``; the same for the
-      other coordinate and the denominator, then one division;
-    - the 4 source taps (zero outside the image) blend in float32 by
-      FMA, ``fma(fx, p01 - p00, p00)`` along x, then the same along y,
-      and the result rounds half to even.
-
-    (OpenCV 4.x blended with 15-bit fixed-point weights on a 1/32 grid;
-    the tests hold this function to the OpenCV they run with.)"""
-    inv = _invert3(m).astype(np.float32).ravel()
+def _row_major_map(coef: np.ndarray, w: int, h: int, i: int) -> np.ndarray:
+    """``x * coef[i] + y * coef[i + 1] + coef[i + 2]`` over the output grid
+    in float32, as OpenCV's linear warp kernels round it: in the vector
+    columns (whole steps of WARP_VECTOR_COLUMNS) the row term
+    ``y * c1 + c2`` first and ``fma(x, c0, row)`` once; in the scalar
+    tail ``fma(x, c0, y * c1) + c2``."""
     ys = np.arange(h, dtype=np.float32)[:, None]
     xs = np.broadcast_to(np.arange(w, dtype=np.float32)[None, :], (h, w))
     vector = xs < (w // WARP_VECTOR_COLUMNS) * WARP_VECTOR_COLUMNS
+    row = np.broadcast_to(ys * coef[i + 1] + coef[i + 2], (h, w))
+    tail = _fma32(xs, coef[i], np.broadcast_to(ys * coef[i + 1], (h, w))) + coef[i + 2]
+    return np.where(vector, _fma32(xs, coef[i], row), tail)
 
-    def mapped(i: int) -> np.ndarray:
-        row = np.broadcast_to(ys * inv[i + 1] + inv[i + 2], (h, w))
-        tail = _fma32(xs, inv[i], np.broadcast_to(ys * inv[i + 1], (h, w))) + inv[i + 2]
-        return np.where(vector, _fma32(xs, inv[i], row), tail)
 
-    den = mapped(6)
-    sx = mapped(0) / den
-    sy = mapped(3) / den
+class OpenCVError(ValueError):
+    """Raised where OpenCV raises ``cv2.error`` for an input the replays
+    take: a remap whose output or source has a side of SHRT_MAX or more,
+    a polar warp to an empty size."""
+
+
+_SHRT_MAX = 32767
+
+
+def remap_linear(img: np.ndarray, sx: np.ndarray, sy: np.ndarray,
+                 border_value: int = 0) -> np.ndarray:
+    """``cv2.remap(img, sx, sy, INTER_LINEAR, borderValue=(v, v, v))`` for
+    uint8 HW or HWC images and float32 maps (``_blend``). A side of
+    SHRT_MAX or more raises OpenCVError, as OpenCV asserts."""
+    if max(np.shape(sx)[:2] + img.shape[:2]) >= _SHRT_MAX:
+        raise OpenCVError("remap: a side of SHRT_MAX or more")
+    return _blend(img, sx, sy, border_value)
+
+
+def _blend(img: np.ndarray, sx: np.ndarray, sy: np.ndarray, border_value: int) -> np.ndarray:
+    """OpenCV 5.0's linear kernel at float32 source positions: the 4
+    source taps (the constant border outside the image) blend in float32
+    by FMA, ``fma(fx, p01 - p00, p00)`` along x, then the same along y,
+    and the result rounds half to even."""
+    sx = np.asarray(sx, np.float32)
+    sy = np.asarray(sy, np.float32)
     x0 = np.floor(sx)
     y0 = np.floor(sy)
     fx = (sx - x0)[..., None]
     fy = (sy - y0)[..., None]
     src = img if img.ndim == 3 else img[..., None]
     ih, iw = src.shape[:2]
-    pad = np.zeros((ih + 2, iw + 2, src.shape[2]), np.float32)
+    pad = np.full((ih + 2, iw + 2, src.shape[2]), np.float32(border_value))
     pad[1:-1, 1:-1] = src
-    # taps outside the image read the zero border
+    # taps outside the image read the border
     xi = np.clip(x0.astype(np.int64) + 1, 0, iw + 1)
     yi = np.clip(y0.astype(np.int64) + 1, 0, ih + 1)
     xj = np.clip(x0.astype(np.int64) + 2, 0, iw + 1)
@@ -959,6 +1062,76 @@ def warp_perspective(img: np.ndarray, m: np.ndarray, w: int, h: int) -> np.ndarr
     bot = _fma32(fx, pad[yj, xj] - pad[yj, xi], pad[yj, xi])
     out = np.clip(np.rint(_fma32(fy, bot - top, top)), 0, 255).astype(np.uint8)
     return out if img.ndim == 3 else out[..., 0]
+
+
+def warp_perspective(img: np.ndarray, m: np.ndarray, w: int, h: int,
+                     border_value: int = 0) -> np.ndarray:
+    """``cv2.warpPerspective(img, m, (w, h), borderValue=(v, v, v))`` for
+    uint8 HWC images (INTER_LINEAR, constant border), bit for bit as
+    OpenCV 5.0's linear warp kernel computes it on an x86 host with AVX2:
+
+    - the inverse homography in float64 (OpenCV's closed-form 3x3
+      inverse), then cast to float32;
+    - each output pixel (x, y) maps back in float32 (``_row_major_map``
+      for the two coordinates and the denominator), then one division;
+    - ``_blend`` of the 4 source taps.
+
+    (OpenCV 4.x blended with 15-bit fixed-point weights on a 1/32 grid;
+    the tests hold this function to the OpenCV they run with.)"""
+    inv = _invert3(m).astype(np.float32).ravel()
+    den = _row_major_map(inv, w, h, 6)
+    sx = _row_major_map(inv, w, h, 0) / den
+    sy = _row_major_map(inv, w, h, 3) / den
+    return _blend(img, sx, sy, border_value)
+
+
+def rotation_matrix_2d(cx: float, cy: float, angle: float, scale: float = 1.0) -> np.ndarray:
+    """``cv2.getRotationMatrix2D((cx, cy), angle, scale)`` (2x3 float64;
+    the centre is a float32 point)."""
+    a = angle * (math.pi / 180)
+    alpha = math.cos(a) * scale
+    beta = math.sin(a) * scale
+    cx, cy = float(np.float32(cx)), float(np.float32(cy))
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def warp_affine(img: np.ndarray, m: np.ndarray, w: int, h: int,
+                border_value: int = 0) -> np.ndarray:
+    """``cv2.warpAffine(img, m, (w, h), borderValue=(v, v, v))``
+    (INTER_LINEAR): OpenCV's float64 inverse of the 2x3 matrix cast to
+    float32, each output pixel mapped back by ``_row_major_map`` and
+    blended by ``_blend``."""
+    a = np.asarray(m, np.float64).ravel()
+    d = a[0] * a[4] - a[1] * a[3]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22 = a[4] * d, a[0] * d
+    a12, a21 = -a[1] * d, -a[3] * d
+    b1 = -a11 * a[2] - a12 * a[5]
+    b2 = -a21 * a[2] - a22 * a[5]
+    inv = np.array([a11, a12, b1, a21, a22, b2]).astype(np.float32)
+    return _blend(img, _row_major_map(inv, w, h, 0), _row_major_map(inv, w, h, 3), border_value)
+
+
+def warp_polar_linear(img: np.ndarray, width: int, height: int, center: tuple[float, float],
+                      max_radius: float) -> np.ndarray:
+    """``cv2.warpPolar(img, (width, height), center, max_radius,
+    WARP_POLAR_LINEAR + INTER_LINEAR)``: row phi samples the angle
+    2 pi phi / height, column rho the radius rho * max_radius / width
+    (float32), the maps made in float64 and cast to float32. OpenCV
+    remaps with a transparent border into an output it does not clear,
+    so a sample whose taps leave the image has no defined value there;
+    this replay gives it the blend over a zero border. An empty size
+    raises OpenCVError, as OpenCV asserts."""
+    if width <= 0 or height <= 0:
+        raise OpenCVError("warpPolar: an empty size")
+    k_angle = 2 * math.pi / height
+    rhos = (np.arange(width) * (max_radius / width)).astype(np.float32).astype(np.float64)
+    phi = np.arange(height) * k_angle
+    cx, cy = float(np.float32(center[0])), float(np.float32(center[1]))
+    mx = (rhos[None] * np.cos(phi)[:, None] + cx).astype(np.float32)
+    my = (rhos[None] * np.sin(phi)[:, None] + cy).astype(np.float32)
+    return remap_linear(img, mx, my, 0)
 
 
 # ----------------------------------------------------------------- charsets

@@ -27,8 +27,11 @@ PIL over libjpeg-turbo (3.1) with PIL's defaults at that quality:
 
 Every step is data parallel once each symbol's code length is known, so
 all of it, the bit packing included, is vectorised over the blocks.
-Other formats and qualities are not ported: the JAX package writes
-only these.
+Any quality is taken (libjpeg's ``jpeg_quality_scaling``): the span
+images are q90 and ``pdfio/writer.images_to_pdf`` writes q92. A grey
+image is one component (a 1x1 Y, quant table 0, the two luma Huffman
+tables, one non-interleaved scan of its blocks in raster order), as PIL
+writes mode ``L``.
 """
 from __future__ import annotations
 
@@ -95,10 +98,12 @@ _AC_CHROMA = ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77], [
 ])
 
 
-def quant_tables() -> tuple[np.ndarray, np.ndarray]:
-    """``jpeg_set_quality(QUALITY, force_baseline=TRUE)``: the Annex K
-    tables scaled (``jpeg_quality_scaling``), natural order."""
-    scale = 200 - QUALITY * 2  # QUALITY >= 50
+def quant_tables(quality: int = QUALITY) -> tuple[np.ndarray, np.ndarray]:
+    """``jpeg_set_quality(quality, force_baseline=TRUE)``: the Annex K
+    tables scaled by ``jpeg_quality_scaling`` (5000 / q below 50, else
+    200 - 2q percent), baseline-clamped, natural order."""
+    quality = min(max(int(quality), 1), 100)
+    scale = 5000 // quality if quality < 50 else 200 - quality * 2
 
     def scaled(base: np.ndarray) -> np.ndarray:
         return np.clip((base * scale + 50) // 100, 1, 255)
@@ -344,35 +349,50 @@ def _segment(marker: int, payload: bytes) -> bytes:
     return bytes([0xFF, marker]) + (len(payload) + 2).to_bytes(2, "big") + payload
 
 
-def _headers(height: int, width: int, luma_q: np.ndarray, chroma_q: np.ndarray) -> bytes:
+def _headers(height: int, width: int, luma_q: np.ndarray, chroma_q: np.ndarray | None) -> bytes:
+    """SOI, JFIF, DQT, SOF0, DHT and SOS of a colour (4:2:0) or, without
+    ``chroma_q``, a one-component grey stream."""
+    grey = chroma_q is None
     out = b"\xff\xd8"
     out += _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
-    for tid, q in ((0, luma_q), (1, chroma_q)):
+    for tid, q in ((0, luma_q),) if grey else ((0, luma_q), (1, chroma_q)):
         out += _segment(0xDB, bytes([tid]) + bytes(q[ZIGZAG].astype(np.uint8)))
-    out += _segment(0xC0, bytes([8]) + height.to_bytes(2, "big") + width.to_bytes(2, "big")
-                    + bytes([3, 1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1]))
-    for cls_id, table in ((0x00, _DC_LUMA), (0x10, _AC_LUMA), (0x01, _DC_CHROMA),
-                          (0x11, _AC_CHROMA)):
+    size = bytes([8]) + height.to_bytes(2, "big") + width.to_bytes(2, "big")
+    if grey:
+        out += _segment(0xC0, size + bytes([1, 1, 0x11, 0]))
+        tables = ((0x00, _DC_LUMA), (0x10, _AC_LUMA))
+    else:
+        out += _segment(0xC0, size + bytes([3, 1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1]))
+        tables = ((0x00, _DC_LUMA), (0x10, _AC_LUMA), (0x01, _DC_CHROMA), (0x11, _AC_CHROMA))
+    for cls_id, table in tables:
         bits, vals = table
         out += _segment(0xC4, bytes([cls_id]) + bytes(bits) + bytes(vals))
-    out += _segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
-    return out
+    if grey:
+        return out + _segment(0xDA, bytes([1, 1, 0x00, 0, 63, 0]))
+    return out + _segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
 
 
-def encode_jpeg(rgb: np.ndarray) -> bytes:
-    """uint8 (H, W, 3) RGB -> the bytes PIL writes for
-    ``Image.fromarray(rgb).save(buf, "JPEG", quality=QUALITY)``."""
-    rgb = np.asarray(rgb)
-    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
-        raise ValueError(f"encode_jpeg wants uint8 (H, W, 3), got {rgb.dtype} {rgb.shape}")
-    h, w = rgb.shape[:2]
+def encode_jpeg(img: np.ndarray, quality: int = QUALITY) -> bytes:
+    """uint8 (H, W, 3) RGB or (H, W) grey -> the bytes PIL writes for
+    ``Image.fromarray(img).save(buf, "JPEG", quality=quality)`` (4:2:0
+    colour, or one component for grey)."""
+    img = np.asarray(img)
+    grey = img.ndim == 2
+    if img.dtype != np.uint8 or not (grey or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"encode_jpeg wants uint8 (H, W, 3) or (H, W), got {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
     if not (0 < h < 65536 and 0 < w < 65536):
         raise ValueError(f"a baseline JPEG holds 1..65535 pixels a side, not {w}x{h}")
-    luma_q, chroma_q = quant_tables()
-    y, cb, cr = rgb_to_ycc(rgb)
-    mcu_rows, mcu_cols = -(-h // 16), -(-w // 16)
-    # Y: whole blocks by edge repetition
+    luma_q, chroma_q = quant_tables(quality)
+    # Y (or grey): whole blocks by edge repetition
     ybh, ybw = -(-h // 8), -(-w // 8)
+    if grey:
+        y_blocks = _component_blocks(_pad_edge(img.astype(np.int64), ybh * 8, ybw * 8), luma_q)
+        blocks = y_blocks.reshape(-1, 64)
+        return (_headers(h, w, luma_q, None)
+                + entropy_code(blocks, np.zeros(len(blocks), np.int64)) + b"\xff\xd9")
+    y, cb, cr = rgb_to_ycc(img)
+    mcu_rows, mcu_cols = -(-h // 16), -(-w // 16)
     y_blocks = _component_blocks(_pad_edge(y, ybh * 8, ybw * 8), luma_q)
     # chroma: even input by edge repetition, 2x2 down, then whole blocks
     ch, cw = -(-h // 2), -(-w // 2)

@@ -1,0 +1,171 @@
+"""PNG decoding as PIL opens a PNG for ``images_to_pdf``, and a plain PNG
+writer, in numpy and zlib.
+
+``decode_png`` returns what ``PIL.Image.open(png)`` holds after
+``images_to_pdf``'s conversion (``rapiddoc_tpu/pdfio/writer.py:121-125``:
+a mode other than ``L`` or ``RGB`` becomes ``RGB``): a (H, W) array for
+mode ``L``, else (H, W, 3). PIL's modes by colour type and bit depth:
+
+- 0 (grey): 1 bit is mode ``1`` (0 and 255 in RGB); 2 and 4 bits are
+  ``L`` with each sample scaled to 0..255 (times 85 and 17); 8 bits ``L``;
+- 2 (RGB), 8 bits: ``RGB``;
+- 3 (palette), 1, 2, 4 or 8 bits: ``P``, looked up in ``PLTE`` (an index
+  past the palette's end reads black);
+- 4 (grey and alpha), 8 bits: ``LA``, the grey repeated in RGB;
+- 6 (RGBA), 8 bits: ``RGBA``, the alpha dropped (``convert("RGB")``
+  does not blend).
+
+A ``tRNS`` chunk changes none of these. Rows are unfiltered for all five
+filter types (None, Sub, Up, Average, Paeth) along anti-diagonals of
+whole pixels (``unfilter``).
+
+16-bit samples and Adam7 interlacing raise NotImplementedError naming
+ROADMAP item 12 (its part 12d), as do other image formats (see
+``decode_image``).
+"""
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+from ..utils.unported import not_ported
+from .jpeg import decode_jpeg
+
+SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _chunks(data: bytes):
+    pos = len(SIGNATURE)
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        yield kind, data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IEND":
+            return
+
+
+def unfilter(raw: np.ndarray, height: int, row_bytes: int, bpp: int) -> np.ndarray:
+    """The (height, row_bytes) uint8 samples of filtered scanlines
+    (``raw``: each row's filter type byte, then its bytes). Pixel (y, x)
+    needs (y, x - 1), (y - 1, x) and (y - 1, x - 1) only, so the image is
+    held skewed (column y + x of row y), where each anti-diagonal is one
+    column and one numpy step; a pixel is bpp bytes (1 below 8 bits)."""
+    lines = raw[: height * (row_bytes + 1)].reshape(height, row_bytes + 1)
+    kinds = lines[:, 0].astype(np.int16)
+    if (kinds > 4).any():
+        raise ValueError(f"PNG filter type {int(kinds.max())}")
+    cols = row_bytes // bpp
+    filt = lines[:, 1:].reshape(height, cols, bpp).astype(np.int16)
+    steps = height + cols - 1
+    # skewed planes with a zero row above and two zero columns before
+    f = np.zeros((height, steps, bpp), np.int16)
+    y, x = np.mgrid[0:height, 0:cols]
+    f[y, y + x] = filt
+    out = np.zeros((height + 1, steps + 2, bpp), np.int16)
+    sub, up, avg, paeth = ((kinds == k)[:, None] for k in (1, 2, 3, 4))
+    for s in range(steps):
+        rows = slice(max(0, s - cols + 1), min(height, s + 1))  # the rows on this diagonal
+        here = slice(rows.start + 1, rows.stop + 1)  # the same rows in ``out``
+        a = out[here, s + 1]  # (y, x - 1)
+        b = out[rows, s + 1]  # (y - 1, x)
+        c = out[rows, s]  # (y - 1, x - 1)
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        pred = (np.where(sub[rows], a, 0) + np.where(up[rows], b, 0)
+                + np.where(avg[rows], (a + b) >> 1, 0)
+                + np.where(paeth[rows], np.where((pa <= pb) & (pa <= pc), a,
+                                                 np.where(pb <= pc, b, c)), 0))
+        out[here, s + 2] = (f[rows, s] + pred) & 255
+    return out[1 + y, 2 + y + x].reshape(height, row_bytes).astype(np.uint8)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W) grey or (H, W, 3) RGB uint8, as described in the
+    module docstring."""
+    if not data.startswith(SIGNATURE):
+        raise ValueError("not a PNG")
+    header = None
+    idat = []
+    palette = None
+    for kind, body in _chunks(data):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body[:13])
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+    if header is None:
+        raise ValueError("a PNG without IHDR")
+    width, height, depth, ctype, _, _, interlace = header
+    if ctype not in _CHANNELS:
+        raise ValueError(f"PNG colour type {ctype}")
+    if depth == 16:
+        raise not_ported("16-bit PNG images", "pdfio")
+    if interlace:
+        raise not_ported("interlaced PNG images", "pdfio")
+    if depth != 8 and ctype not in (0, 3):
+        raise ValueError(f"PNG colour type {ctype} at {depth} bits")
+    channels = _CHANNELS[ctype]
+    row_bytes = (width * channels * depth + 7) // 8
+    bpp = max(1, channels * depth // 8)
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    samples = unfilter(raw, height, row_bytes, bpp)
+    if depth < 8:
+        bits = np.unpackbits(samples, axis=1)
+        values = bits.reshape(height, -1, depth)
+        weights = 1 << np.arange(depth - 1, -1, -1)
+        samples = (values * weights).sum(-1)[:, :width].astype(np.uint8)
+    else:
+        samples = samples.reshape(height, width, channels)
+    if ctype == 0:
+        grey = samples.reshape(height, width)
+        if depth < 8:
+            grey = (grey.astype(np.int64) * (255 // ((1 << depth) - 1))).astype(np.uint8)
+        if depth == 1:  # mode "1": RGB
+            return np.repeat(grey[..., None], 3, axis=2)
+        return grey
+    if ctype == 3:
+        if palette is None:
+            raise ValueError("a palette PNG without PLTE")
+        lut = np.zeros((256, 3), np.uint8)
+        lut[: len(palette)] = palette[:256]
+        return lut[samples.reshape(height, width)]
+    if ctype == 4:
+        return np.repeat(samples[..., :1], 3, axis=2)
+    return np.ascontiguousarray(samples[..., :3])
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """uint8 (H, W) grey or (H, W, 3) RGB -> an 8-bit PNG, every row
+    unfiltered (filter type 0), one zlib IDAT."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape[:2]
+    ctype = 0 if img.ndim == 2 else 2
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return (SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes())) + chunk(b"IEND", b""))
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """An image file's pixels as ``images_to_pdf`` takes them from PIL:
+    (H, W) for mode ``L``, else (H, W, 3) RGB. PNG (``decode_png``) and
+    the baseline JPEGs ``pdfio.jpeg`` decodes; GIF, WEBP, BMP, TIFF and
+    the rest raise NotImplementedError naming ROADMAP item 12 (12d)."""
+    if data.startswith(SIGNATURE):
+        return decode_png(data)
+    if data[:3] == b"\xff\xd8\xff":
+        return decode_jpeg(data)
+    kind = {b"GIF8": "GIF", b"RIFF": "WEBP", b"BM": "BMP", b"II*\x00": "TIFF",
+            b"MM\x00*": "TIFF"}
+    for magic, name in kind.items():
+        if data.startswith(magic):
+            raise not_ported(f"{name} images", "pdfio")
+    raise not_ported("image files other than PNG and JPEG", "pdfio")

@@ -13,16 +13,19 @@ recognizer on the layout's formula regions; ④ the table recognizer on
 the layout's table regions, with the recognized formulas inside each
 table and uuid placeholders for the images inside it; ⑤
 ``_recover_missed_text``, a focused rec pass over layout text regions
-the page-level det missed. Formula and table regions can instead be
+the page-level det missed; ⑥ ``_run_seals``, seal OCR
+(``models/ocr/seal.py``) on the layout's seal regions. Formula and table regions can instead be
 collected into a ``DeferredAR`` that the facade flushes in full decode
 buckets across page windows (formulas first, so that tables get the
 LaTeX of the formulas inside them). The helpers are the JAX package's
 code, unchanged.
 
 Not ported yet, and raising NotImplementedError with its ROADMAP item
-where the JAX package would run it: checkbox detection and seal OCR.
+where the JAX package would run it: checkbox detection.
 
-Two differences of policy. Rec runs as one call, without the JAX
+Three differences of policy. Seal OCR with the port's own OCR system
+raises where it fails; the JAX package logs "seal OCR failed" and leaves
+the seals without text (a custom OCR object keeps that fallback). Rec runs as one call, without the JAX
 package's ``_rec_with_fallback`` (a failed batch retried crop by crop,
 each failed crop an empty low-score text), in ``_run_page_ocr`` and in
 ``_recover_missed_text``. The table model is called with its formula
@@ -450,12 +453,9 @@ class DocumentAnalyzer:
         if self.ocr is not None and self.layout_model is not None:
             self._recover_missed_text(page_images, model_infos)
 
-        # ⑥ seal OCR runs on the layout's seal regions
-        if self.ocr is not None and any(
-            det.get("original_label") == "seal" and not det.get("text")
-            for info in model_infos for det in info["layout_dets"]
-        ):
-            raise not_ported("seal OCR", "seal")
+        # ⑥ seal OCR inside seal-labeled regions
+        if self.ocr is not None:
+            self._run_seals(page_images, model_infos)
 
         # ⑥ restore coordinates for pre-rotated pages
         for i, angle in enumerate(rotations):
@@ -463,6 +463,36 @@ class DocumentAnalyzer:
                 h, w = page_images[i].shape[:2]
                 _rotate_dets_back(model_infos[i]["layout_dets"], angle, w, h)
         return model_infos
+
+    def _run_seals(self, page_images, model_infos) -> None:
+        from ..models.ocr.engine import TextSystem
+        from ..models.ocr.seal import SealOCR
+
+        crops, owners = [], []
+        for page_i, info in enumerate(model_infos):
+            for det in info["layout_dets"]:
+                if det.get("original_label") != "seal" or det.get("text"):
+                    continue
+                x0, y0, _, _, x1, y1, _, _ = det["poly"]
+                crop = page_images[page_i][
+                    max(int(y0), 0) : int(y1) + 1, max(int(x0), 0) : int(x1) + 1
+                ]
+                if crop.size:
+                    crops.append(crop)
+                    owners.append(det)
+        if not crops:
+            return
+        if isinstance(self.ocr, TextSystem):
+            texts = SealOCR(self.ocr).batch(crops)
+        else:
+            try:  # a custom OCR object: the JAX package's fallback
+                texts = SealOCR(self.ocr).batch(crops)
+            except Exception:
+                logger.exception("seal OCR failed")
+                return
+        for det, text in zip(owners, texts):
+            if text:
+                det["text"] = text
 
     def _recover_missed_text(self, page_images, model_infos) -> None:
         from ..models.ocr.engine import crop_quad

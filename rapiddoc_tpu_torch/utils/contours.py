@@ -23,6 +23,8 @@ OpenCV's output and order:
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 from scipy import ndimage
 
@@ -42,20 +44,33 @@ def _external_components(mask: np.ndarray) -> tuple[np.ndarray, list[int]]:
     return fg, [int(v) for v in external]
 
 
-def _trace(img: np.ndarray, y0: int, x0: int) -> list[tuple[int, int]]:
-    """OpenCV's icvFetchContour for an outer border starting at (x0, y0)
-    of a framed 0/1 image, CHAIN_APPROX_SIMPLE, in framed coordinates."""
+_NBD = 2  # the mark of a traced border pixel (RETR_LIST / RETR_EXTERNAL)
+
+
+def _trace(img: np.ndarray, y0: int, x0: int, hole: bool = False,
+           simple: bool = True) -> list[tuple[int, int]]:
+    """OpenCV's icvFetchContour for a border starting at (x0, y0) of a
+    framed image (0 background), in framed coordinates: an outer border
+    searches clockwise from the left neighbour for its first step, a hole
+    border from the right one. ``simple`` keeps a point where the chain
+    turns (CHAIN_APPROX_SIMPLE), else every point (CHAIN_APPROX_NONE).
+    Marks the traced pixels in ``img`` as OpenCV does, when ``img`` is
+    int8: -126 where the search crossed the right neighbour, else 2 in
+    place of 1."""
+    marks = img.dtype == np.int8
 
     def nz(y: int, x: int, s: int) -> bool:
         dx, dy = _DELTAS[s & 7]
         return img[y + dy, x + dx] != 0
 
-    s = s_end = 4
+    s = s_end = 0 if hole else 4
     while True:
         s = (s - 1) & 7
         if nz(y0, x0, s) or s == s_end:
             break
     if s == s_end and not nz(y0, x0, s):
+        if marks:
+            img[y0, x0] = _NBD - 128
         return [(x0, y0)]  # a single pixel
     i1 = (y0 + _DELTAS[s][1], x0 + _DELTAS[s][0])
     y3, x3 = y0, x0
@@ -63,12 +78,18 @@ def _trace(img: np.ndarray, y0: int, x0: int) -> list[tuple[int, int]]:
     pts: list[tuple[int, int]] = []
     px, py = x0, y0
     while True:
+        s_end = s
         while True:
             s += 1
             if nz(y3, x3, s):
                 break
         s &= 7
-        if s != prev_s:
+        if marks:
+            if 1 <= s <= s_end:
+                img[y3, x3] = _NBD - 128
+            elif img[y3, x3] == 1:
+                img[y3, x3] = _NBD
+        if s != prev_s or not simple:
             pts.append((px, py))
             prev_s = s
         px += _DELTAS[s][0]
@@ -81,10 +102,10 @@ def _trace(img: np.ndarray, y0: int, x0: int) -> list[tuple[int, int]]:
     return pts
 
 
-def find_contours_external_simple(mask: np.ndarray) -> list[np.ndarray]:
+def find_contours_external_simple(mask: np.ndarray, simple: bool = True) -> list[np.ndarray]:
     """``cv2.findContours(mask, RETR_EXTERNAL, CHAIN_APPROX_SIMPLE)[0]``
-    for a 2-D mask (nonzero is foreground): a list of (N, 1, 2) int32
-    point arrays (x, y)."""
+    (``simple=False``: CHAIN_APPROX_NONE) for a 2-D mask (nonzero is
+    foreground): a list of (N, 1, 2) int32 point arrays (x, y)."""
     img = np.pad((np.asarray(mask) != 0).astype(np.uint8), 1)
     fg, external = _external_components(img)
     if not external:
@@ -98,9 +119,41 @@ def find_contours_external_simple(mask: np.ndarray) -> list[np.ndarray]:
     starts.sort()
     out = []
     for y0, x0 in reversed(starts):
-        pts = np.asarray(_trace(img, y0, x0), np.int32) - 1
+        pts = np.asarray(_trace(img, y0, x0, simple=simple), np.int32) - 1
         out.append(pts.reshape(-1, 1, 2))
     return out
+
+
+def find_contours_list(mask: np.ndarray, simple: bool = True) -> list[tuple[np.ndarray, bool]]:
+    """``cv2.findContours(mask, RETR_LIST, CHAIN_APPROX_SIMPLE)[0]``
+    (``simple=False``: CHAIN_APPROX_NONE) for a 2-D mask, each contour
+    with whether it is a hole border: OpenCV's raster scan of the framed
+    image, an outer border started where a 1 follows a 0, a hole border
+    at the pixel before a 0 that follows a pixel above 0 (a pixel marked
+    while a border crossed its right neighbour starts none), each traced
+    and marked in turn; the list runs from the last border found to the
+    first. Points are (N, 1, 2) int32 (x, y)."""
+    img = np.pad((np.asarray(mask) != 0).astype(np.int8), 1)
+    h, w = img.shape
+    found = []
+    for y in range(1, h - 1):
+        row = img[y]
+        x, prev = 1, 0
+        while x < w - 1:
+            # the next pixel that differs from prev
+            rest = np.flatnonzero(row[x:w - 1] != prev)
+            if not len(rest):
+                break
+            x += int(rest[0])
+            p = int(row[x])
+            if prev == 0 and p == 1:
+                found.append((_trace(img, y, x, simple=simple), False))
+            elif p == 0 and prev >= 1:
+                found.append((_trace(img, y, x - 1, hole=True, simple=simple), True))
+            prev = int(row[x])  # as the trace left it
+            x += 1
+    return [(np.asarray(pts, np.int32).reshape(-1, 1, 2) - 1, hole)
+            for pts, hole in reversed(found)]
 
 
 def contour_area(contour: np.ndarray) -> float:
@@ -232,3 +285,66 @@ def approx_poly_dp(contour: np.ndarray, epsilon: float) -> np.ndarray:
         pt = end_pt
         i += 1
     return np.asarray(dst[:new_count], np.int32).reshape(-1, 1, 2)
+
+
+def fit_ellipse(points: np.ndarray) -> tuple[tuple[float, float], tuple[float, float], float]:
+    """``cv2.fitEllipse`` of six or more integer points: ((cx, cy), (w, h),
+    angle), OpenCV's ``fitEllipseNoDirect``. The points are centred on
+    their float32 mean and scaled so their mean L1 spread is 100; a
+    least-squares fit of the five-parameter conic (OpenCV's SVD solve)
+    gives the centre, a second fit with the centre fixed gives the axes
+    and the angle. The least-squares solves are LAPACK's, not OpenCV's
+    Jacobi SVD, so the floats can differ from OpenCV's in their last
+    bits (tests/test_torch_seal.py states the tolerance). Degenerate
+    point sets (OpenCV nudges the points and truncates singular values)
+    are not replayed: seal OCR fits borders of 20 or more points."""
+    p = np.asarray(points, np.float32).reshape(-1, 2)
+    n = len(p)
+    if n < 6:
+        raise ValueError("fit_ellipse replays six or more points")
+    cx = np.float32(0)
+    cy = np.float32(0)
+    for x, y in p:  # OpenCV sums the float32 points in order
+        cx += x
+        cy += y
+    cx /= np.float32(n)
+    cy /= np.float32(n)
+    d = p - np.array([cx, cy], np.float32)
+    s = 0.0
+    for x, y in d:
+        s += abs(float(x)) + abs(float(y))
+    eps32 = float(np.finfo(np.float32).eps)
+    scale = 100.0 / (s if s > eps32 else eps32)
+
+    px = d[:, 0].astype(np.float64) * scale
+    py = d[:, 1].astype(np.float64) * scale
+    a = np.stack([-px * px, -py * py, -px * py, px, py], 1)
+    gfp = np.linalg.lstsq(a, np.full(n, 10000.0), rcond=None)[0]
+    m = np.array([[2 * gfp[0], gfp[2]], [gfp[2], 2 * gfp[1]]])
+    rp = np.linalg.lstsq(m, gfp[3:5], rcond=None)[0]
+    a = np.stack([(px - rp[0]) ** 2, (py - rp[1]) ** 2, (px - rp[0]) * (py - rp[1])], 1)
+    gfp = np.linalg.lstsq(a, np.ones(n), rcond=None)[0]
+    angle = -0.5 * math.atan2(gfp[2], gfp[1] - gfp[0])
+    if abs(gfp[2]) > 1e-8:
+        t = gfp[2] / math.sin(-2.0 * angle)
+    else:
+        t = gfp[1] - gfp[0]
+    r0 = abs(gfp[0] + gfp[1] - t)
+    if r0 > 1e-8:
+        r0 = math.sqrt(2.0 / r0)
+    r1 = abs(gfp[0] + gfp[1] + t)
+    if r1 > 1e-8:
+        r1 = math.sqrt(2.0 / r1)
+    ecx = float(np.float32(rp[0] / scale) + cx)
+    ecy = float(np.float32(rp[1] / scale) + cy)
+    w = float(np.float32(r0 * 2 / scale))
+    h = float(np.float32(r1 * 2 / scale))
+    deg = float(np.float32(angle * 180 / math.pi))
+    if w > h:
+        w, h = h, w
+        deg = float(np.float32(90 + angle * 180 / math.pi))
+    if deg < -180:
+        deg += 360
+    if deg > 360:
+        deg -= 360
+    return (ecx, ecy), (w, h), deg

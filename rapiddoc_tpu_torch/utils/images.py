@@ -3,7 +3,9 @@
 Port of ``rapiddoc_tpu/utils/images.py`` on numpy page arrays (H, W, 3).
 The crops and their digest names (a sha256 of the RGB pixels) are the
 JAX package's; the payload written for a span is the JPEG PIL writes at
-quality 90, made by ``pdfio/jpeg_encode.py`` byte for byte.
+quality 90, made by ``pdfio/jpeg_encode.py`` byte for byte. With
+``originals`` (``image_config["extract_original_image"]``), an image span
+that matches an embedded image keeps that image's decoded pixels.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ def image_digest_name(img: np.ndarray, suffix: str = "jpg") -> str:
 
 def encode_image(img: np.ndarray, fmt: str = "JPEG", quality: int = 90) -> bytes:
     """The bytes of ``PIL.Image.save(buf, "JPEG", quality=90)`` of the RGB
-    crop; the JAX package writes no other format or quality."""
+    crop; the JAX package writes no other format or quality here."""
     if fmt != "JPEG" or quality != QUALITY:
         raise not_ported(f"{fmt} span images at quality {quality}", "pdfio")
     return encode_jpeg(img)
@@ -50,11 +52,14 @@ def cut_span_images(
     original_iou_thresh: float = 0.9,
 ) -> None:
     """Crop & save image/table/interline-equation span images, setting
-    span['image_path'] in place. image_writer: DataWriter-like with write()."""
-    from ..types import ContentType
+    span['image_path'] in place. image_writer: DataWriter-like with write().
 
-    if originals:
-        raise not_ported("extract_original_image", "pdfio")
+    ``originals`` ((bbox in page units, decoded RGB pixels) pairs):
+    an image span whose IoU with an embedded image's bbox is at least
+    ``original_iou_thresh`` keeps that image's pixels, not a crop of the
+    rendered page."""
+    from ..types import ContentType
+    from . import boxes as B
 
     def handle_span(span: dict) -> None:
         if (
@@ -80,7 +85,14 @@ def cut_span_images(
             ContentType.TABLE,
             ContentType.INTERLINE_EQUATION,
         ) and not span.get("image_path"):
-            crop = crop_bbox(page_img, span["bbox"], scale)
+            crop = None
+            if originals and span["type"] == ContentType.IMAGE:
+                for obox, oimg in originals:
+                    if B.iou(span["bbox"], obox) >= original_iou_thresh:
+                        crop = oimg
+                        break
+            if crop is None:
+                crop = crop_bbox(page_img, span["bbox"], scale)
             name = image_digest_name(crop)
             if image_writer is not None:
                 image_writer.write(name, encode_image(crop))

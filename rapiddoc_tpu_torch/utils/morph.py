@@ -104,3 +104,68 @@ def connected_components_with_stats(
         # what OpenCV reports for a background without pixels
         stats[0, :4] = (-1, np.iinfo(np.int32).max, 0, 0)
     return n, labels, stats
+
+
+def otsu_threshold(gray: np.ndarray) -> int:
+    """The threshold ``cv2.threshold(gray, 0, 255, THRESH_OTSU)`` picks
+    for a uint8 image: the first level of greatest between-class
+    variance, OpenCV's float64 recurrence over the histogram (levels
+    where either class holds under FLT_EPSILON of the pixels skipped)."""
+    hist = np.bincount(gray.ravel(), minlength=256)
+    scale = 1.0 / gray.size
+    mu = 0.0
+    for i in range(256):
+        mu += i * float(hist[i])
+    mu *= scale
+    mu1 = q1 = 0.0
+    max_sigma = 0.0
+    max_val = 0
+    eps = float(np.finfo(np.float32).eps)
+    for i in range(256):
+        p_i = hist[i] * scale
+        mu1 *= q1
+        q1 += p_i
+        q2 = 1.0 - q1
+        if min(q1, q2) < eps or max(q1, q2) > 1.0 - eps:
+            continue
+        mu1 = (mu1 + i * p_i) / q1
+        mu2 = (mu - q1 * mu1) / q2
+        sigma = q1 * q2 * (mu1 - mu2) * (mu1 - mu2)
+        if sigma > max_sigma:
+            max_sigma, max_val = sigma, i
+    return max_val
+
+
+def threshold_otsu_inv(gray: np.ndarray) -> np.ndarray:
+    """``cv2.threshold(gray, 0, 255, THRESH_BINARY_INV + THRESH_OTSU)[1]``."""
+    return np.where(gray > otsu_threshold(gray), np.uint8(0), np.uint8(255))
+
+
+def ellipse_element(ksize: int) -> np.ndarray:
+    """``cv2.getStructuringElement(MORPH_ELLIPSE, (ksize, ksize))`` as bool:
+    row i spans the centre column +- round(c * sqrt((r^2 - dy^2) / r^2))."""
+    r = c = ksize // 2
+    inv_r2 = 1.0 / (r * r) if r else 0.0
+    elem = np.zeros((ksize, ksize), bool)
+    for i in range(ksize):
+        dy = i - r
+        dx = int(np.rint(c * np.sqrt((r * r - dy * dy) * inv_r2)))
+        elem[i, max(c - dx, 0):min(c + dx + 1, ksize)] = True
+    return elem
+
+
+def dilate_ellipse(mask: np.ndarray, ksize: int) -> np.ndarray:
+    """``cv2.dilate(mask, getStructuringElement(MORPH_ELLIPSE, (ksize,
+    ksize)))`` for a uint8 mask and an odd ksize (outside the image counts
+    as nothing). The element's rows narrow away from its centre, so it is
+    the union of one rectangle per row half-width, and the dilation the
+    maximum of separable rectangle dilations."""
+    half = ellipse_element(ksize).sum(axis=1) // 2
+    r = ksize // 2
+    out = np.zeros_like(mask)
+    for d in np.unique(half):
+        reach = int(np.abs(np.flatnonzero(half >= d) - r).max())
+        rect = ndimage.maximum_filter1d(mask, 2 * int(d) + 1, axis=1, mode="constant")
+        rect = ndimage.maximum_filter1d(rect, 2 * reach + 1, axis=0, mode="constant")
+        np.maximum(out, rect, out=out)
+    return out

@@ -278,27 +278,31 @@ KNOBS = {
 @pytest.mark.parametrize("knob", sorted(KNOBS))
 def test_port_raises_for_wire_knobs_it_does_not_run(knob):
     """A wire or transfer knob the JAX package reads, set to anything but
-    its default: the OCR wires (ROADMAP item 7, ported) build the OCR
-    system with the wires the JAX package's build sets; the layout's
-    8-bit RGB wire, which the port runs only at its default, raises
-    NotImplementedError naming item 8. The default value builds."""
+    its default: the OCR wires (ROADMAP item 7) build the OCR system with
+    the wires the JAX package's build sets, and the layout's 8-bit RGB
+    wire (item 8, ported with item 11) builds the layout detector with
+    the JAX package's wire. The default value builds the nibble wires.
+    (The name is kept from when these knobs raised.)"""
     import torch
 
     from rapiddoc_tpu.models import registry as jax_registry
+    from rapiddoc_tpu.models.layout.engine import LayoutDetector as JaxLayoutDetector
 
     from rapiddoc_tpu_torch.models.registry import build_analyzer
 
     value, item = KNOBS[knob]
     with held_env(RAPIDDOC_DEMO_LAYOUT="1", **{knob: value}):
         del os.environ["RAPIDDOC_DISABLE_LAYOUT"]
+        analyzer = build_analyzer(formula_enable=False, table_enable=False, device="cpu",
+                                  dtype=torch.float32)
         if item == 8:
-            with pytest.raises(NotImplementedError,
-                               match=f"{knob}.*ROADMAP Queue 1 item {item}:"):
-                build_analyzer(formula_enable=False, table_enable=False, device="cpu",
-                               dtype=torch.float32)
+            want = JaxLayoutDetector.build({})
+            assert analyzer.layout_model.nibble_wire == want.nibble_wire is False
+            page = np.random.default_rng(0).integers(0, 256, (50, 40, 3), dtype=np.uint8)
+            size = want.config.input_size
+            assert analyzer.layout_model.preprocess([page]).shape == (1, size, size, 3)
         else:
-            got = build_analyzer(formula_enable=False, table_enable=False, device="cpu",
-                                 dtype=torch.float32).ocr
+            got = analyzer.ocr
             want = jax_registry.build_ocr_system()
             for stage, keys in (("detector", ("gray_transfer", "nibble_wire", "prob4_wire")),
                                 ("recognizer", ("gray_transfer", "nibble_wire"))):
@@ -309,6 +313,7 @@ def test_port_raises_for_wire_knobs_it_does_not_run(knob):
         analyzer = build_analyzer(formula_enable=False, table_enable=False, device="cpu",
                                   dtype=torch.float32)
     assert analyzer.layout_model is not None and analyzer.ocr is not None
+    assert analyzer.layout_model.nibble_wire
     assert analyzer.ocr.detector.nibble_wire and analyzer.ocr.recognizer.nibble_wire
 
 
@@ -341,25 +346,45 @@ def test_port_builds_orientation_as_jax_package():
 
 
 def test_port_raises_for_seal_ocr():
-    """Seal OCR and the curved-text det it needs still raise, naming
-    ROADMAP item 11 (seal and detect_polys)."""
+    """Seal OCR and the curved-text det it needs (ROADMAP item 11, ported):
+    ``detect_polys`` on a crop with a curved line and ``_run_seals`` with a
+    seal det put in place give the JAX package's polygons and text in
+    fp32. (The name is kept from when they raised;
+    tests/test_torch_seal.py holds the rest of seal OCR.)"""
     import torch
+    from PIL import Image, ImageDraw, ImageFont
+
+    from rapiddoc_tpu.models.ocr.seal import SEAL_DET_PARAMS
+    from rapiddoc_tpu.models.registry import build_ocr_system as jax_build
+    from rapiddoc_tpu.pipeline.scheduler import DocumentAnalyzer as JaxAnalyzer
 
     from rapiddoc_tpu_torch.models.registry import build_ocr_system
     from rapiddoc_tpu_torch.pipeline.scheduler import DocumentAnalyzer
 
-    ocr = build_ocr_system(device="cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11: seal and detect_polys"):
-        ocr.detector.detect_polys([np.full((64, 64, 3), 255, np.uint8)])
+    img = Image.new("RGB", (160, 96), "white")
+    for i, ch in enumerate("SEAL TEXT"):
+        ImageDraw.Draw(img).text((8 + 16 * i, 50 - 18 * np.sin(i / 2.7)), ch,
+                                 font=ImageFont.load_default(size=20), fill=(150, 20, 20))
+    crop = np.asarray(img)
 
     class SealLayout:
         def batch_predict(self, pages):
-            return [[{"category_id": 1, "original_label": "seal", "score": 0.9,
-                      "poly": [2, 2, 40, 2, 40, 40, 2, 40]}] for _ in pages]
+            return [[{"category_id": 3, "original_label": "seal", "score": 0.9,
+                      "poly": [2, 2, 157, 2, 157, 93, 2, 93]}] for _ in pages]
 
-    analyzer = DocumentAnalyzer(layout_model=SealLayout(), ocr_system=ocr)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11:"):
-        analyzer.analyze_pages([np.full((64, 64, 3), 255, np.uint8)], ["txt"], [None])
+    with held_env(RAPIDDOC_FP32_PARAMS="1"):
+        ocr = build_ocr_system(device="cpu", dtype=torch.float32)
+        jocr = jax_build()
+        got = ocr.detector.detect_polys([crop], params=SEAL_DET_PARAMS)[0]
+        want = jocr.detector.detect_polys([crop], params=SEAL_DET_PARAMS)[0]
+        assert len(got) == len(want) >= 1
+        assert all(np.array_equal(g, w) for g, w in zip(got, want))
+        texts = [
+            [d.get("text", "") for d in an.analyze_pages([crop], ["txt"], [None])[0]["layout_dets"]]
+            for an in (DocumentAnalyzer(layout_model=SealLayout(), ocr_system=ocr),
+                       JaxAnalyzer(layout_model=SealLayout(), ocr_system=jocr))
+        ]
+    assert texts[0] == texts[1]
 
 
 @pytest.mark.parametrize("stage", ["LAYOUT", "LAYOUT_DEMO", "FORMULA"])
@@ -425,11 +450,16 @@ def test_port_raises_when_the_rec_head_fails(pdf, monkeypatch, error):
 
 
 def test_port_raises_for_inputs_not_ported(tmp_path):
+    """GIF and WEBP images (ROADMAP item 12d), Office documents and URLs
+    raise; arrays and PNG or JPEG images are ported (item 12a,
+    tests/test_torch_image_inputs.py)."""
     from rapiddoc_tpu_torch import RapidDoc
 
     doc = RapidDoc(device="cpu")
-    with pytest.raises(NotImplementedError, match="image inputs"):
-        doc(np.zeros((8, 8, 3), np.uint8))
+    with pytest.raises(NotImplementedError, match="GIF images.*ROADMAP Queue 1 item 12:"):
+        doc(b"GIF89a" + bytes(16))
+    with pytest.raises(NotImplementedError, match="WEBP images"):
+        doc(b"RIFF\x10\x00\x00\x00WEBPVP8 " + bytes(8))
     (tmp_path / "a.docx").write_bytes(b"PK\x03\x04")
     with pytest.raises(NotImplementedError, match="Office"):
         doc(tmp_path / "a.docx")
