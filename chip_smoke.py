@@ -2346,6 +2346,121 @@ def phase_image_inputs(card: str) -> dict:
     return counts
 
 
+# ------------------------------------------------- the ninth slice's path
+
+# The born-digital fixture (tests/test_torch_vector.py writes it and its
+# golden). Its bf16 "ocr" parse with the int8 head against the JAX
+# package's bf16 int8 golden. The port's bf16 on the CPU: 33/44 lines
+# equal (0.75), CER 0.173, LaTeX CER 0.150, 2/2 formulas, 5/5 images; the
+# JAX package's fp32 against its bf16: 0.705, 0.138, 0.329 (python
+# tests/test_torch_vector.py). The margins: 0.15 of lines (44 lines),
+# 0.13 of CER, LaTeX CER up to the earlier slices' 0.65 (two formulas),
+# 2 formulas or images.
+VECTOR_BF16 = {"min_exact_share": 0.60, "max_cer": 0.30, "max_latex_cer": 0.65,
+               "max_count_gap": 2}
+VECTOR_RENDER_RUNS = {"200": 2, "72": 1}
+
+
+def phase_vector(card: str) -> dict:
+    """Born-digital pages (vector paths, clips, masks, turned and small
+    images, Type3 glyphs): each page rendered on the card's host at 200
+    and 72 dpi with the raster's sha256 equal to the golden's, render
+    ms/page; RapidDoc(device="cuda") in fp32 (TF32 off) in "ocr" mode with
+    the int8 head off and on and in "auto" mode equal to the golden; the
+    bf16 int8-head "ocr" parse timed, its launches counted from 0 and held
+    to the rec dispatches and decode steps, its output within
+    VECTOR_BF16. Returns the launches."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from rapiddoc_tpu_torch import RapidDoc
+    from rapiddoc_tpu_torch.bench import STAGES, device_busy_share
+    from rapiddoc_tpu_torch.ops.ctc_head import fused_ctc_argmax
+    from rapiddoc_tpu_torch.ops.quant_head import fused_argmax_int8
+    from rapiddoc_tpu_torch.pdfio import classify_pdf, open_pdf, render_page_full
+    from rapiddoc_tpu_torch.utils.trace import GLOBAL_TRACER
+
+    golden = json.loads(asset("vector_smoke_golden.json").read_text())
+    pdf = asset("vector_smoke_doc.pdf").read_bytes()
+    render_ms = {}
+    for dpi, pages in golden["render"]["pages"].items():
+        times = []
+        for run in range(VECTOR_RENDER_RUNS[dpi]):
+            doc = open_pdf(pdf)  # the render caches are the document's
+            for i, want in enumerate(pages):
+                t0 = time.perf_counter()
+                img, text, boxes = render_page_full(doc.get_page(i), dpi=int(dpi))
+                times.append(time.perf_counter() - t0)
+                check(hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+                      == want["sha256"], f"vector: page {i} at {dpi} dpi differs from the golden's")
+                if "text" in want:
+                    check(json.loads(json.dumps(text)) == want["text"] and boxes == want["boxes"],
+                          f"vector: page {i}'s text or image boxes differ at {dpi} dpi")
+        render_ms[dpi] = {"mean": 1e3 * sum(times) / len(times), "max": 1e3 * max(times)}
+    check(classify_pdf(pdf) == golden["render"]["classify"], "vector: classify_pdf differs")
+
+    def summary(out) -> dict:
+        got = parse_summary(out)
+        got["dets"] = masked_dets(out.model_json)
+        return got
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for mode, method, extra in (("ocr_fp32", "ocr", {}),
+                                ("ocr_fp32_int8", "ocr", {"RAPIDDOC_INT8_HEAD": "1"}),
+                                ("auto_fp32", "auto", {})):
+        clean_env(RAPIDDOC_DEMO_LAYOUT="1", **extra)
+        out = RapidDoc(device="cuda", dtype=torch.float32)(pdf, parse_method=method)
+        assert_same_parse(summary(out), golden[mode], f"vector fp32 {mode}")
+    emit({"phase": "vector", "dtype": "fp32", "card": card, "pages": len(pages),
+          "render_ms_per_page": render_ms, "pages_equal": True, "parses_equal": True})
+
+    # bf16 with the int8 head, every stage on: the timed run
+    clean_env(RAPIDDOC_DEMO_LAYOUT="1", RAPIDDOC_INT8_HEAD="1")
+    rapid = RapidDoc(device="cuda")
+    rapid(pdf, parse_method="ocr")  # warm-up
+    torch.cuda.synchronize()
+    analyzer = rapid._stack().analyzer
+    rec, formula = analyzer.ocr.recognizer.session.stats, analyzer.formula_model.stats
+    GLOBAL_TRACER.reset()
+    calls, steps = rec.calls, formula.decode_steps
+    fused_ctc_argmax.launches = 0
+    fused_argmax_int8.launches = 0
+    t0 = time.perf_counter()
+    out = rapid(pdf, parse_method="ocr")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"ctc_head": fused_ctc_argmax.launches, "quant_head": fused_argmax_int8.launches,
+              "rec_dispatches": rec.calls - calls, "decode_steps": formula.decode_steps - steps}
+    report = GLOBAL_TRACER.report()
+    n = len(out.model_json)
+    kernel_ms, traced_ms = device_busy_share(lambda: rapid(pdf, parse_method="ocr"))
+    vs = compare_layout_parse(parse_summary(out), golden["ocr_bf16_int8"])
+    emit({"phase": "vector", "dtype": "bf16", "int8_head": True, "card": card,
+          "pages": n, "pages_per_s": n / wall,
+          "stage_ms_per_page": {k: report[k]["total_s"] * 1e3 / n for k in STAGES if k in report},
+          "device_busy_share": kernel_ms / traced_ms, "device_kernel_ms_per_page": kernel_ms / n,
+          "launches": counts, "vs_golden_bf16_int8": vs})
+    for name, per in (("ctc_head", "rec_dispatches"), ("quant_head", "decode_steps")):
+        check(counts[name] > 0, f"vector launched the {name} kernel no time")
+        check(counts[name] == counts[per],
+              f"vector: {counts[name]} {name} launches for {counts[per]} {per}")
+    lim = VECTOR_BF16
+    md = vs["markdown"]
+    check(md["exact_share"] >= lim["min_exact_share"],
+          f"vector bf16: only {md['exact_share']:.3f} of lines equal")
+    check(md["cer"] <= lim["max_cer"], f"vector bf16: CER {md['cer']:.4f}")
+    check(vs["latex_cer"] <= lim["max_latex_cer"], f"vector bf16: LaTeX CER {vs['latex_cer']:.4f}")
+    check(abs(vs["formulas"] - vs["golden_formulas"]) <= lim["max_count_gap"],
+          f"vector bf16: {vs['formulas']} formulas, golden {vs['golden_formulas']}")
+    check(abs(vs["images"] - vs["golden_images"]) <= lim["max_count_gap"],
+          f"vector bf16: {vs['images']} images, golden {vs['golden_images']}")
+    clean_env()
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -2391,6 +2506,7 @@ def main() -> int:
         orientation = timed("orientation", phase_orientation, card)
         seal_counts = timed("seal", phase_seal, card)
         image_counts = timed("image_inputs", phase_image_inputs, card)
+        vector_counts = timed("vector", phase_vector, card)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2417,7 +2533,8 @@ def main() -> int:
                              "ocr": ocr_launches,
                              **{f"ocr_family_{k}": v for k, v in family.items()},
                              **table_ocr, **orientation, **seal_counts,
-                             "image_inputs": image_counts["ctc_head"]},
+                             "image_inputs": image_counts["ctc_head"],
+                             "vector": vector_counts["ctc_head"]},
         "max_abs_err": k1["max_abs_err"],
         "max_rel_err": k1["max_rel_err"], "matches_plain": True,
         "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
@@ -2435,7 +2552,8 @@ def main() -> int:
         "launches_by_path": {"main_path": counts["quant_head"],
                              "pipeline_layout": layout_counts["quant_head"],
                              "formula": k2_launches,
-                             "image_inputs": image_counts["quant_head"]},
+                             "image_inputs": image_counts["quant_head"],
+                             "vector": vector_counts["quant_head"]},
         "max_abs_err": k2["max_abs_err"],
         "max_rel_err": k2["max_rel_err"], "matches_plain": True,
         "ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"],

@@ -63,7 +63,7 @@ from .config import (
     table_enable_default,
 )
 from .data.io import DataWriter, FanoutDataWriter, FileBasedDataWriter, MemoryDataWriter
-from .pdfio.images import xobject_to_array
+from .pdfio.images import to_rgb, xobject_to_array
 from .pdfio.placements import original_image_streams
 from .pdfio.writer import images_to_pdf
 from .pipeline.middle import build_page_infos, finalize_middle_json
@@ -592,13 +592,13 @@ def _sniff_office(data: bytes) -> bool:
 
 def _collect_original_images(doc, n_pages: int, first_page: int = 0) -> list:
     """Per page: (bbox in page units, decoded RGB pixels) of each embedded
-    image (``pdfio.images.xobject_to_array``, grey repeated in RGB)."""
+    image (``pdfio.images.xobject_to_array``, as PIL's ``convert("RGB")``)."""
     out = []
     for i in range(first_page, first_page + n_pages):
         items = []
         for bbox, stream in original_image_streams(doc.get_page(i)):
             img = xobject_to_array(doc, stream)
             if img is not None:
-                items.append((bbox, np.repeat(img[..., None], 3, 2) if img.ndim == 2 else img))
+                items.append((bbox, to_rgb(img)))
         out.append(items)
     return out

@@ -1,46 +1,65 @@
-"""Page rasterization onto a numpy canvas (feeds the OCR models).
+"""Page rasterization onto a numpy canvas (feeds the models).
 
-Port of ``rapiddoc_tpu/pdfio/render.py`` ``render_page_full`` for pages
-whose content is images placed by ``q ... cm ... Do ... Q``, as scanned
-pages and ``images_to_pdf`` write them. The page size and its rounding
-(``PageRasterizer.__init__``) and the placement arithmetic
-(``on_draw_image``: the unit square under the CTM, the rectangular clip,
-the flips, rotations by 90 degrees, the resize and the paste) are the JAX
-package's; its PIL and cv2 calls become numpy:
+Port of ``rapiddoc_tpu/pdfio/render.py`` ``render_page_full``. The page
+size and its rounding, the placement arithmetic, the clip machinery and
+the order of every drawing operation are the JAX package's; its PIL and
+cv2 calls become numpy, each held byte-equal to Pillow 12.1 or OpenCV:
 
-- PIL's ``transpose`` and ``rotate(expand=True)`` by 90 or 270 degrees
-  are array flips and ``np.rot90``;
-- ``cv2.resize`` INTER_LINEAR (enlarging) is ``resize_linear`` and
-  INTER_AREA (shrinking) is ``resize_area`` of ``models/ocr/pre_post.py``,
-  both bit-equal, for placements of at least 16384 destination pixels;
-- the paste onto the white canvas is a clipped slice assignment.
+- vector paths (``on_paint_path``): fills and strokes through
+  ``pil_draw`` (ImageDraw's polygon, line and RGBA blend, ``paste``
+  through an ``L`` mask, ``ImageChops.multiply``), with the JAX package's
+  fast path (each subpath blended onto the canvas) and slow path (an
+  ``L`` layer clipped to the clip box, scaled by the clip mask and the
+  alpha with ``// 255``, then pasted). As in the JAX package a stroke
+  ignores a rectangular clip (``ADVICE.md``, ``render.py:209``). A clip
+  that is not a rectangle is a mask of its subpaths (XOR for even-odd, AND
+  across the clip stack);
+- placed images (``on_draw_image``): flips and rotations by 90 degrees
+  are array flips; other turns in 45-135 or 225-315 degrees are PIL's
+  NEAREST ``rotate(expand=True)`` (``pil_resample``); ``cv2.resize``
+  INTER_LINEAR (enlarging) and INTER_AREA (shrinking) are ``resize_linear``
+  and ``resize_area`` of ``models/ocr/pre_post.py`` for RGB and grey
+  placements of at least 16384 destination pixels; smaller ones and every
+  RGBA placement go through PIL's BILINEAR ``resize``; image masks paint
+  the fill colour through their BICUBIC-resized stencil, unflipped and
+  unturned, as in the JAX package;
+- Type3 glyphs run their CharProc content streams under FontMatrix x trm,
+  as the JAX package does, with the text state saved and restored.
+
+The JAX package allocates a full-canvas layer for every clipped fill or
+stroke; here every layer covers only the shape's rows and columns, and
+consecutive fills and strokes of one ink are blended in one pass (blends
+of one ink commute), which gives the same bytes.
 
 What the JAX package would draw and this module does not draw yet raises
 NotImplementedError naming its ROADMAP item, and is never left as
-background: text that shows ink, path painting, shadings, a clip that is
-not a rectangle, an image resized to under 16384 pixels (PIL BILINEAR in
-the JAX package), a rotation other than a multiple of 90 degrees, and the
-codecs ``pdfio.images`` does not take. The content interpreter skips an
-operator that raises, as the JAX package's does; so a hook records what
-it cannot draw, and ``render_page_full`` raises it after the pass.
+background: text drawn with a font program or a system font (and a Type3
+glyph without a CharProc, which the JAX package draws so), pattern fills,
+shadings and the codecs ``pdfio.images`` does not take. The content
+interpreter skips an operator that raises, as the JAX package's does; so a
+hook records what it cannot draw, inside a Type3 glyph too, and
+``render_page_full`` raises it after the pass.
 """
 from __future__ import annotations
 
 import math
+from dataclasses import replace
 
 import numpy as np
 
 from ..models.ocr.pre_post import resize_area, resize_linear
 from ..utils.unported import not_ported
-from .content import ContentInterpreter, Matrix, mat_apply
+from . import pil_draw
+from .content import ContentInterpreter, Matrix, mat_apply, mat_mul, mat_scale_of
 from .cos import Stream
 from .document import PdfPage
 from .fonts import Font
 from .images import xobject_to_array
+from .pil_resample import resize, rotate_expand
 from .text import page_base_ctm
 
 # placements that the JAX package resizes with cv2 (at least this many
-# destination pixels); smaller ones go through PIL BILINEAR
+# destination pixels, RGB or grey); the rest go through PIL BILINEAR
 CV2_MIN_PIXELS = 16384
 
 
@@ -54,6 +73,12 @@ class PageRasterizer(ContentInterpreter):
         self.canvas = np.empty((self.height, self.width, 3), np.uint8)
         self.canvas[:] = background
         self.failure: Exception | None = None
+        self._clipmask_cache: dict = {}
+        # blends waiting to be drawn: one RGBA ink, its polygons and its
+        # lines by width
+        self._ink: tuple | None = None
+        self._polys: list = []
+        self._lines: dict[int, list] = {}
 
     def _fail(self, exc: Exception) -> None:
         """Keep the first failure (render_page_full raises it) and raise
@@ -64,17 +89,156 @@ class PageRasterizer(ContentInterpreter):
 
     def render(self) -> np.ndarray:
         self.run(page_base_ctm(self.page, self.scale))
+        self._flush()
         if self.failure is not None:
             raise self.failure
         return self.canvas
 
+    # ------------------------------------------------------------- blending
+
+    def _queue(self, rgba: tuple, polys=(), lines=(), width: int = 0) -> None:
+        """Blend ``rgba`` through polygons and lines onto the canvas, as
+        ``ImageDraw.Draw(canvas, "RGBA")`` would one call at a time."""
+        if self._ink != rgba:
+            self._flush()
+            self._ink = rgba
+        self._polys.extend(polys)
+        if lines:
+            self._lines.setdefault(width, []).extend(lines)
+
+    def _flush(self) -> None:
+        if self._ink is None:
+            return
+        spans = [pil_draw.polygon_spans(self._polys, self.height, True)] if self._polys else []
+        points = []
+        for width, lines in self._lines.items():
+            sp, pts = pil_draw.line_spans(lines, width, self.height, True)
+            spans.append(sp)
+            if pts is not None:
+                points.append(pts)
+        pil_draw.blend_spans(self.canvas, spans, points, self._ink)
+        self._ink = None
+        self._polys = []
+        self._lines = {}
+
     # ----------------------------------------------------------------- hooks
 
     def on_paint_path(self, path, *, stroke: bool, fill: bool, even_odd: bool) -> None:
-        self._fail(not_ported("path painting", "pdfio"))
+        gs = self.gs
+        if fill:
+            if gs.fill_pattern is not None:
+                self._fail(not_ported("pattern fills", "pdfio"))
+            self._paint_polys(path, pil_draw.ink(gs.fill_color, gs.fill_alpha))
+        if stroke:
+            color = pil_draw.ink(gs.stroke_color, gs.stroke_alpha)
+            lw = max(1, int(round(gs.line_width * mat_scale_of(gs.ctm))))
+            subs = [sub for sub in path if len(sub) >= 2]
+            mask = self._clip_mask()
+            if mask is None:
+                self._queue(color, lines=subs, width=lw)
+            elif subs:
+                self._flush()
+                cov = pil_draw.line_coverage(subs, lw, self.width, self.height)
+                if cov is not None:
+                    x0, y0, layer = cov
+                    layer = layer * np.uint8(color[3])
+                    h, w = layer.shape
+                    layer = pil_draw.multiply(layer, mask[y0:y0 + h, x0:x0 + w])
+                    pil_draw.paste_mask(self.canvas, color[:3], layer, x0, y0)
 
     def on_shading(self, ops: list, res: dict) -> None:
         self._fail(not_ported("shadings", "pdfio"))
+
+    # ------------------------------------------------------- clip machinery
+
+    def _clip_mask(self) -> np.ndarray | None:
+        """The non-rectangular clips' mask, 255 inside (None when every
+        active clip is a rectangle): each clip's subpaths filled as PIL
+        mode-1 polygons, XORed for even-odd, the clips ANDed. Cached by the
+        clip stack."""
+        cp = self.gs.clip_paths
+        if not cp:
+            return None
+        m = self._clipmask_cache.get(cp)
+        if m is None:
+            acc = None
+            for polys, even_odd in cp:
+                layer = np.zeros((self.height, self.width), bool)
+                if even_odd:
+                    for sub in polys:
+                        cov = pil_draw.fill_coverage([sub], self.width, self.height)
+                        if cov is not None:
+                            x0, y0, inside = cov
+                            layer[y0:y0 + inside.shape[0], x0:x0 + inside.shape[1]] ^= inside
+                else:
+                    cov = pil_draw.fill_coverage(list(polys), self.width, self.height)
+                    if cov is not None:
+                        x0, y0, inside = cov
+                        layer[y0:y0 + inside.shape[0], x0:x0 + inside.shape[1]] |= inside
+                acc = layer if acc is None else (acc & layer)
+            m = acc.astype(np.uint8) * np.uint8(255)
+            if len(self._clipmask_cache) > 64:
+                self._clipmask_cache.clear()
+            self._clipmask_cache[cp] = m
+        return m
+
+    def _paint_polys(self, path, rgba: tuple) -> None:
+        """Polygon fill honouring the clip box and the clip mask (each
+        subpath on its own, even-odd or not, as in the JAX package)."""
+        gs = self.gs
+        mask = self._clip_mask()
+        cb = gs.clip_bbox
+        needs_bbox = cb is not None and any(
+            x < cb[0] - 0.5 or y < cb[1] - 0.5 or x > cb[2] + 0.5 or y > cb[3] + 0.5
+            for sub in path for x, y in sub)
+        subs = [sub for sub in path if len(sub) >= 3]
+        if mask is None and not needs_bbox:
+            self._queue(rgba, polys=subs)
+            return
+        self._flush()
+        cov = pil_draw.fill_coverage(subs, self.width, self.height)
+        if cov is None:
+            return
+        x0, y0, inside = cov
+        h, w = inside.shape
+        arr = inside.astype(np.uint8) * np.uint8(255)
+        if needs_bbox:
+            bx0 = max(int(math.floor(cb[0])), 0)
+            by0 = max(int(math.floor(cb[1])), 0)
+            bx1 = min(int(math.ceil(cb[2])), self.width)
+            by1 = min(int(math.ceil(cb[3])), self.height)
+            keep = np.zeros_like(arr)
+            kx0, ky0 = max(bx0 - x0, 0), max(by0 - y0, 0)
+            kx1, ky1 = min(bx1 - x0, w), min(by1 - y0, h)
+            if kx1 > kx0 and ky1 > ky0 and bx1 > bx0 and by1 > by0:
+                keep[ky0:ky1, kx0:kx1] = 1
+            arr *= keep
+        if mask is not None:
+            arr = (arr.astype(np.uint16) * mask[y0:y0 + h, x0:x0 + w] // 255).astype(np.uint8)
+        if rgba[3] < 255:
+            arr = (arr.astype(np.uint16) * rgba[3] // 255).astype(np.uint8)
+        pil_draw.paste_mask(self.canvas, rgba[:3], arr, x0, y0)
+
+    def _with_clip_mask(self, origin, alpha: np.ndarray | None, size=None):
+        """A paste alpha combined with the clip mask at ``origin`` (the
+        mask is 0 outside the canvas); None for an unmasked paste."""
+        mask = self._clip_mask()
+        if mask is None:
+            return alpha
+        h, w = alpha.shape if alpha is not None else (size or (0, 0))
+        if w <= 0 or h <= 0:
+            return alpha
+        ox, oy = origin
+        crop = np.zeros((h, w), np.uint8)
+        cx0, cy0 = max(ox, 0), max(oy, 0)
+        cx1, cy1 = min(ox + w, self.width), min(oy + h, self.height)
+        if cx1 > cx0 and cy1 > cy0:
+            crop[cy0 - oy:cy1 - oy, cx0 - ox:cx1 - ox] = mask[cy0:cy1, cx0:cx1]
+        if alpha is None:
+            return crop
+        return (alpha.astype(np.uint16) * crop // 255).astype(np.uint8)
+
+    # ----------------------------------------------------------------- text
 
     def on_show_char(
         self, code: int, text: str, trm: Matrix, advance: float, font: Font
@@ -84,13 +248,70 @@ class PageRasterizer(ContentInterpreter):
         # content streams it runs
         if self.gs.render_mode in (3, 7):
             return
-        if getattr(font, "subtype", "") != "Type3":
-            if not text or text.isspace() or math.hypot(trm[2], trm[3]) < 1.0:
-                return
-        self._fail(not_ported("text rendering", "pdfio"))
+        type3 = getattr(font, "subtype", "") == "Type3"
+        if type3 and self._draw_type3(code, font, trm):
+            return
+        if not text or text.isspace() or math.hypot(trm[2], trm[3]) < 1.0:
+            return
+        if type3:
+            self._fail(not_ported("a Type3 glyph without a CharProc (drawn with a system "
+                                  "font)", "glyphs"))
+        self._fail(not_ported("text rendering", "glyphs"))
+
+    def _draw_type3(self, code: int, font: Font, trm: Matrix) -> bool:
+        """Run a Type3 glyph's CharProc under FontMatrix x trm; False when
+        the glyph program cannot be resolved (the JAX package then draws
+        the text with a system font)."""
+        procs = getattr(font, "t3_charprocs", None)
+        if not procs:
+            return False
+        name = font._differences.get(code)
+        if name is None:
+            return False
+        stream = self.doc.resolve(procs.get(name))
+        if stream is None or not hasattr(stream, "dict"):
+            return False
+        if self._form_depth >= self.MAX_FORM_DEPTH:
+            return True  # depth-guarded, as in the JAX package
+        self._form_depth += 1
+        saved_gs = replace(self.gs)
+        saved_len = len(self.gs_stack)
+        # CharProcs may contain BT/ET: the text state restores too
+        saved_tm = self.text_matrix
+        saved_tlm = self.text_line_matrix
+        try:
+            self.gs.ctm = mat_mul(getattr(font, "t3_matrix", (0.001, 0, 0, 0.001, 0, 0)), trm)
+            res = getattr(font, "t3_resources", None) or self.page.resources
+            cache = getattr(self.doc, "_form_tokens_cache", None)
+            if cache is None:
+                cache = {}
+                self.doc._form_tokens_cache = cache
+            toks = cache.get(id(stream))
+            if toks is None:
+                from .content import tokenize_content
+
+                toks = list(tokenize_content(self.doc.stream_bytes(stream)))
+                if len(cache) > 512:
+                    cache.clear()
+                cache[id(stream)] = toks
+            self.execute(b"", res, tokens=toks)
+        except NotImplementedError:
+            raise
+        except Exception:  # noqa: BLE001 - the JAX package draws the glyph as far as it got
+            pass
+        finally:
+            self.gs = saved_gs
+            del self.gs_stack[saved_len:]
+            self.text_matrix = saved_tm
+            self.text_line_matrix = saved_tlm
+            self._form_depth -= 1
+        return True
+
+    # --------------------------------------------------------------- images
 
     def on_draw_image(self, stream: Stream, name: str) -> None:
         try:
+            self._flush()
             self._draw_image(stream)
         except Exception as exc:  # noqa: BLE001 - every failure is fatal here
             self._fail(exc)
@@ -113,8 +334,13 @@ class PageRasterizer(ContentInterpreter):
         dst_w, dst_h = int(round(x1 - x0)), int(round(y1 - y0))
         if dst_w <= 0 or dst_h <= 0 or img is None:
             return
-        if self.gs.clip_paths:
-            raise not_ported("a clip that is not a rectangle", "pdfio")
+        origin = (int(x0), int(y0))
+        if img.ndim == 3 and img.shape[2] == 2:
+            # stencil mask: the fill colour through the mask, unflipped
+            color = tuple(int(v * 255) for v in self.gs.fill_color)
+            mask = self._with_clip_mask(origin, resize(img[..., 0], dst_w, dst_h, "bicubic"))
+            pil_draw.paste_mask(self.canvas, color, mask, *origin)
+            return
         a, b, c, d, _, _ = ctm
         if a < 0:  # FLIP_LEFT_RIGHT
             img = img[:, ::-1]
@@ -122,35 +348,38 @@ class PageRasterizer(ContentInterpreter):
             img = img[::-1]
         rot = math.degrees(math.atan2(b, a)) % 360.0
         if 45 <= rot < 135 or 225 <= rot < 315:
-            # PIL rotate(-rot, expand=True) is a transpose only at 90 and 270
-            if rot == 90.0:
-                img = np.rot90(img, -1)
-            elif rot == 270.0:
-                img = np.rot90(img, 1)
-            else:
-                raise not_ported(f"an image placed at {rot:.6g} degrees", "pdfio")
+            img = rotate_expand(np.ascontiguousarray(img), -rot)
         h, w = img.shape[:2]
+        rgba = img.ndim == 3 and img.shape[2] == 4
         if (dst_w, dst_h) != (w, h):
-            if dst_w * dst_h < CV2_MIN_PIXELS:
-                raise not_ported(f"a {w}x{h} image resized to {dst_w}x{dst_h}",
-                                 "small_resize")
             img = np.ascontiguousarray(img)
-            if dst_w * dst_h < w * h:
-                img = resize_area(img, dst_w, dst_h)
+            if not rgba and dst_w * dst_h >= CV2_MIN_PIXELS:
+                if dst_w * dst_h < w * h:
+                    img = resize_area(img, dst_w, dst_h)
+                else:
+                    img = resize_linear(img, dst_w, dst_h)
             else:
-                img = resize_linear(img, dst_w, dst_h)
-        self._paste(img, int(x0), int(y0))
+                img = resize(img, dst_w, dst_h, "bilinear")
+        if rgba:
+            pmask = self._with_clip_mask(origin, img[..., 3])
+            pil_draw.paste_mask(self.canvas, img[..., :3], pmask, *origin)
+            return
+        if img.ndim == 2:
+            img = np.repeat(img[..., None], 3, 2)
+        pmask = self._with_clip_mask(origin, None, img.shape[:2])
+        if pmask is None:
+            self._paste(img, *origin)
+        else:
+            pil_draw.paste_mask(self.canvas, img, pmask, *origin)
 
     def _paste(self, img: np.ndarray, ox: int, oy: int) -> None:
-        """PIL ``Image.paste`` at (ox, oy), clipped to the canvas; a grey
-        image is pasted as RGB."""
+        """PIL ``Image.paste`` at (ox, oy), clipped to the canvas."""
         h, w = img.shape[:2]
         cx0, cy0 = max(ox, 0), max(oy, 0)
         cx1, cy1 = min(ox + w, self.width), min(oy + h, self.height)
         if cx1 <= cx0 or cy1 <= cy0:
             return
-        part = img[cy0 - oy:cy1 - oy, cx0 - ox:cx1 - ox]
-        self.canvas[cy0:cy1, cx0:cx1] = part[..., None] if part.ndim == 2 else part
+        self.canvas[cy0:cy1, cx0:cx1] = img[cy0 - oy:cy1 - oy, cx0 - ox:cx1 - ox]
 
 
 class _RenderAndExtract(PageRasterizer):

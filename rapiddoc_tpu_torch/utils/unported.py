@@ -10,8 +10,8 @@ from __future__ import annotations
 # ROADMAP.md, Queue 1: item number and title of each item the port
 # raises for
 ITEMS = {
-    "small_resize": (5, "PIL-BILINEAR resize of small placed images"),
-    "pdfio": (12, "the rest of pdfio/ and pipeline/"),
+    "pdfio": (12, "12d, the other codecs, colour spaces, patterns and shadings"),
+    "glyphs": (12, "12c, glyphs drawn through FreeType"),
     "sniff": (13, "ONNX interpreter and sniffing"),
     "host_families": (15, "the host-only families"),
     "checkpoints": (17, "checkpoint converters and published checkpoints"),

@@ -6,11 +6,15 @@ the fixture PDF at 200 dpi (the 960 px JPEGs enlarged, INTER_LINEAR) and
 at 100 and 72 dpi (shrunk, INTER_AREA), and on hand-written pages whose
 images are raw RGB or grey samples (Flate or not) placed flipped,
 rotated by 90 degrees (or by less than 45, which the JAX package draws
-unrotated), clipped by a rectangle or partly off the page.
+unrotated), clipped by a rectangle or partly off the page; and on pages
+of vector paths (fills, strokes, even-odd, translucent ink, a stroke
+under a rectangular clip), a clip that is not a rectangle, an image
+resized to under 16384 pixels, a rotation by 60 degrees, an image mask,
+a soft mask and Type3 glyphs (an outline and an inline image mask).
 What it does not draw yet must raise NotImplementedError: text that
-shows ink, path painting, a clip that is not a rectangle, an image
-resized to under 16384 pixels, a rotation by 45 degrees or more that is
-not a multiple of 90, an image mask and a decode array.
+shows ink (Type1 Helvetica, and a Type3 glyph without a CharProc, which
+the JAX package draws with a system font), a decode array, a shading and
+a pattern fill.
 """
 import zlib
 from pathlib import Path
@@ -29,9 +33,10 @@ FIXTURE = REPO / "rapiddoc_tpu_torch" / "assets" / "ocr_smoke_doc.pdf"
 
 
 def image_pdf(content: bytes, img: np.ndarray, flate: bool = True, extra: bytes = b"",
-              media=(0, 0, 400, 300)) -> bytes:
+              media=(0, 0, 400, 300), res: bytes = b"", objs: dict | None = None) -> bytes:
     """One page drawing ``content`` with the raw-sample image XObject
-    /Im0 (RGB or grey, 8 bits) and the font /F1."""
+    /Im0 (RGB or grey, 8 bits) and the font /F1; ``res`` adds resource
+    entries and ``objs`` objects numbered from 7."""
     h, w = img.shape[:2]
     cs = b"/DeviceRGB" if img.ndim == 3 else b"/DeviceGray"
     data = zlib.compress(img.tobytes()) if flate else img.tobytes()
@@ -40,12 +45,15 @@ def image_pdf(content: bytes, img: np.ndarray, flate: bool = True, extra: bytes 
         1: b"<< /Type /Catalog /Pages 2 0 R >>",
         2: b"<< /Type /Pages /Kids [3 0 R] /Count 1 >>",
         3: b"<< /Type /Page /Parent 2 0 R /MediaBox [%d %d %d %d] " % media
-           + b"/Resources << /XObject << /Im0 5 0 R >> /Font << /F1 6 0 R >> >> /Contents 4 0 R >>",
+           + b"/Resources << /XObject << /Im0 5 0 R >> /Font << /F1 6 0 R /T3 7 0 R >> "
+           + res + b" >> /Contents 4 0 R >>",
         4: b"<< /Length %d >>\nstream\n" % len(content) + content + b"\nendstream",
         5: b"<< /Type /XObject /Subtype /Image /Width %d /Height %d /ColorSpace " % (w, h)
            + cs + b" /BitsPerComponent 8 " + filt + extra + b"/Length %d >>\nstream\n" % len(data)
            + data + b"\nendstream",
         6: b"<< /Type /Font /Subtype /Type1 /BaseFont /Helvetica >>",
+        **TYPE3,
+        **(objs or {}),
     }
     out = bytearray(b"%PDF-1.4\n")
     offsets = []
@@ -53,9 +61,34 @@ def image_pdf(content: bytes, img: np.ndarray, flate: bool = True, extra: bytes 
         offsets.append(len(out))
         out += b"%d 0 obj\n" % num + objs[num] + b"\nendobj\n"
     xref = len(out)
-    out += b"xref\n0 7\n0000000000 65535 f \n" + b"".join(b"%010d 00000 n \n" % o for o in offsets)
-    out += b"trailer\n<< /Size 7 /Root 1 0 R >>\nstartxref\n%d\n%%%%EOF\n" % xref
+    n = len(objs) + 1
+    out += b"xref\n0 %d\n0000000000 65535 f \n" % n + b"".join(
+        b"%010d 00000 n \n" % o for o in offsets)
+    out += b"trailer\n<< /Size %d /Root 1 0 R >>\nstartxref\n%d\n%%%%EOF\n" % (n, xref)
     return bytes(out)
+
+
+# a Type3 font: /A a filled outline (d0), /B an inline image mask (d1);
+# code 67 (/C) has no CharProc
+_MASK_HEX = np.packbits(~np.eye(8, dtype=bool) & ~np.eye(8, dtype=bool)[::-1], axis=1).tobytes().hex()
+_GLYPH_A = (b"600 0 d0 0 0 m 500 0 l 250 700 l h f 100 100 m 400 100 l 400 200 l 100 200 l h "
+            b"80 60 m 300 -40 520 60 v 500 250 y f")
+_GLYPH_B = (b"600 0 0 0 500 700 d1 q 500 0 0 700 0 0 cm BI /W 8 /H 8 /IM true /BPC 1 "
+            b"/F /AHx ID " + _MASK_HEX.encode() + b"> EI Q")
+TYPE3 = {
+    7: b"<< /Type /Font /Subtype /Type3 /FontBBox [0 -100 600 800] "
+       b"/FontMatrix [0.001 0 0 0.001 0 0] /CharProcs << /A 8 0 R /B 9 0 R >> "
+       b"/Encoding << /Type /Encoding /Differences [65 /A /B /C] >> /FirstChar 65 "
+       b"/LastChar 67 /Widths [600 600 600] /Resources << >> >>",
+    8: b"<< /Length %d >>\nstream\n" % len(_GLYPH_A) + _GLYPH_A + b"\nendstream",
+    9: b"<< /Length %d >>\nstream\n" % len(_GLYPH_B) + _GLYPH_B + b"\nendstream",
+}
+_SHADING = (b"<< /ShadingType 2 /ColorSpace /DeviceRGB /Coords [0 0 200 0] /Function "
+            b"<< /FunctionType 2 /Domain [0 1] /C0 [1 0 0] /C1 [0 0 1] /N 1 >> >>")
+_ALPHA = np.tile(np.linspace(0, 255, 40).astype(np.uint8), (30, 1))
+_SMASK_OBJ = {10: b"<< /Type /XObject /Subtype /Image /Width 40 /Height 30 /ColorSpace "
+                  b"/DeviceGray /BitsPerComponent 8 /Length %d >>\nstream\n" % _ALPHA.size
+                  + _ALPHA.tobytes() + b"\nendstream"}
 
 
 def both(data: bytes, dpi: int, page: int = 0):
@@ -102,15 +135,47 @@ def test_placed_images_equal_jax(name, dpi):
     assert boxes == jboxes
 
 
-UNSUPPORTED = {
-    "text": (b"BT /F1 24 Tf 50 150 Td (Hello) Tj ET", {}),
+# cases the JAX package draws with PIL: name -> (content, image_pdf kwargs)
+VECTOR = {
     "path_fill": (b"0 0 1 rg 10 10 100 50 re f", {}),
     "path_stroke": (b"2 w 10 10 m 200 200 l S", {}),
     "clip_not_rect": (b"q 10 10 m 200 20 l 100 250 l h W n 300 0 0 200 40 50 cm /Im0 Do Q", {}),
     "small_resize": (b"q 40 0 0 30 10 10 cm /Im0 Do Q", {}),
     "rotated_60": (b"q 100 173.2 -173.2 100 250 20 cm /Im0 Do Q", {}),
     "image_mask": (b"q 300 0 0 200 40 50 cm /Im0 Do Q", {"extra": b"/ImageMask true "}),
+    "even_odd_fill": (b"0.2 0.6 0.3 rg 20 20 m 220 20 l 220 220 l 20 220 l h 60 60 m 180 60 l "
+                      b"180 180 l 60 180 l h f* 0 0 1 RG 3 w 30 250 m 120 230 200 290 c S", {}),
+    # a stroke ignores a rectangular clip, as the JAX package draws it
+    "stroke_under_rect_clip": (b"q 50 50 100 100 re W n 1 0 0 RG 4 w 10 10 m 300 280 l S "
+                               b"0 1 0 rg 20 20 200 200 re f Q", {}),
+    "translucent_strokes": (b"q /GS0 gs 1 w 0 0 0 RG 3 w 20 20 m 150 150 l 300 40 l S "
+                            b"0 0 1 rg 60 60 m 200 260 l 330 90 l h f Q",
+                            {"res": b"/ExtGState << /GS0 << /CA 0.5 /ca 0.4 >> >>"}),
+    "soft_mask": (b"q 300 0 0 200 40 50 cm /Im0 Do Q q 100 0 0 60 20 200 cm /Im0 Do Q",
+                  {"extra": b"/SMask 10 0 R ", "objs": _SMASK_OBJ}),
+    "type3_glyphs": (b"0.1 0.1 0.5 rg BT /T3 48 Tf 40 150 Td (ABAB) Tj ET "
+                     b"BT /T3 12 Tf 1 0.3 -0.3 1 40 60 Tm (ABBA) Tj ET", {}),
+}
+
+
+@pytest.mark.parametrize("name", list(VECTOR))
+@pytest.mark.parametrize("dpi", [200, 72])
+def test_vector_cases_equal_jax(name, dpi):
+    content, kw = VECTOR[name]
+    got, want, boxes, jboxes, _ = both(image_pdf(content, RGB, **kw), dpi)
+    assert np.array_equal(got, want)
+    assert boxes == jboxes
+
+
+UNSUPPORTED = {
+    "text": (b"BT /F1 24 Tf 50 150 Td (Hello) Tj ET", {}),
     "decode_array": (b"q 300 0 0 200 40 50 cm /Im0 Do Q", {"extra": b"/Decode [1 0 1 0 1 0] "}),
+    "shading": (b"q 10 10 200 100 re W n /Sh0 sh Q",
+                {"res": b"/Shading << /Sh0 " + _SHADING + b" >>"}),
+    "pattern_fill": (b"/Pattern cs /P0 scn 10 10 100 50 re f",
+                     {"res": b"/Pattern << /P0 << /PatternType 2 /Shading " + _SHADING
+                             + b" >> >>"}),
+    "type3_without_charproc": (b"BT /T3 24 Tf 50 150 Td (AC) Tj ET", {}),
 }
 
 
