@@ -110,6 +110,19 @@ per shape or run):
           with the int8 head over the three in one parse_batch: pages/s,
           K1's launches held to the rec dispatches, K2's to the decode
           steps
+  vector  born-digital pages (vector paths, clips, masks, Type3 glyphs)
+          rendered on the host, each raster's sha256 equal to the
+          golden's at 200 and 72 dpi; fp32 "ocr" (int8 head off and on)
+          and "auto" parses equal to the golden; bf16 timed, launches
+          held to the rec dispatches and decode steps
+  text    text from font programs (TrueType, symbol-cmap CID TrueType,
+          bare CFF, Type1) and the fallback font (F1's program, read from
+          the fixture): rasters' sha256 equal to the golden's at 200 and
+          72 dpi, render ms/page and the glyph-tile cache's hit rate;
+          fp32 "ocr" (int8 head off and on) and "txt" parses equal to the
+          golden; bf16 timed, launches held to the rec dispatches and
+          decode steps; with no fallback font (Aileron at 10 px, which
+          FreeType hints) the 72 dpi pages within TEXT_AILERON_BAND
 Then a timing line (seconds by phase), a ``{"kernels": [...]}`` line,
 the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
@@ -118,6 +131,7 @@ that last line. Needs the repository checkout around it and a card.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2461,6 +2475,187 @@ def phase_vector(card: str) -> dict:
     return counts
 
 
+# JAX package's fp32 int8 against its bf16 int8: 0.64 of lines, CER 0.051,
+# LaTeX CER 0.667 (2 formulas); the port's bf16 on the CPU: 0.68, 0.018,
+# 0.544 (python tests/test_torch_text.py --compare). The margins: 0.14 of
+# lines (25 lines), 0.10 of CER, LaTeX CER to 0.80, 2 formulas or images.
+TEXT_BF16 = {"min_exact_share": 0.50, "max_cer": 0.15, "max_latex_cer": 0.80,
+             "max_count_gap": 2}
+# the no-fallback-font page at 72 dpi against the JAX package's (Aileron at
+# 10 px, which FreeType autohints and the port draws unhinted): over the
+# pixels either inks, the mean absolute difference and the share more
+# than 64 apart (tests/test_torch_text.py RASTER_BAND)
+TEXT_AILERON_BAND = (32.0, 0.25)
+TEXT_RENDER_RUNS = {"200": 2, "72": 1}
+
+
+def text_fallback(pdf: bytes, case: str):
+    """Point the port's fallback font at F1's program (read from the
+    fixture) for ``case`` "exact", or at no candidate ("aileron":
+    ImageFont.load_default's Aileron at 10 px); returns the temporary
+    directory to clean up."""
+    import tempfile
+
+    import rapiddoc_tpu_torch.pdfio.render as render_mod
+    from rapiddoc_tpu_torch.pdfio import open_pdf
+    from rapiddoc_tpu_torch.pdfio.fonts import load_font
+
+    tmp = tempfile.TemporaryDirectory()
+    if case == "exact":
+        doc = open_pdf(pdf)
+        fonts = doc.resolve(doc.get_page(0).resources["Font"])
+        path = Path(tmp.name) / "fallback.ttf"
+        path.write_bytes(load_font(doc, doc.resolve(fonts["F1"])).font_program)
+        os.environ["RAPIDDOC_FALLBACK_FONT"] = str(path)
+        render_mod._FALLBACK_FONTS_CACHE = None
+    else:
+        os.environ.pop("RAPIDDOC_FALLBACK_FONT", None)
+        render_mod._FALLBACK_FONTS_CACHE = []
+    return tmp
+
+
+def grey_band(got, want) -> dict:
+    """Over the pixels either grey raster inks (below 250): the mean
+    absolute difference and the share more than 64 apart."""
+    import numpy as np
+
+    a = np.asarray(got).min(axis=2).astype(np.int16) if got.ndim == 3 else got.astype(np.int16)
+    b = want.astype(np.int16)
+    ink = (a < 250) | (b < 250)
+    d = np.abs(a - b)[ink]
+    return {"mean_abs": float(d.mean()) if d.size else 0.0,
+            "share_over_64": float((d > 64).mean()) if d.size else 0.0}
+
+
+def phase_text(card: str) -> dict:
+    """Text drawn from font programs (embedded TrueType, a symbol-cmap CID
+    TrueType, bare CFF, Type1) and the fallback font: each page rendered
+    on the card's host at 200 and 72 dpi with F1's program as the
+    fallback, the raster's sha256 equal to the golden's, render ms/page and
+    the glyph-tile cache's hit rate; with no fallback font (Aileron at
+    10 px) each 72 dpi page within TEXT_AILERON_BAND of the JAX package's;
+    RapidDoc(device="cuda") in fp32 (TF32 off) in "ocr" mode with the int8
+    head off and on and in "txt" mode equal to the golden; the bf16
+    int8-head "ocr" parse timed, its launches counted from 0 and held to
+    the rec dispatches and decode steps, its output within TEXT_BF16.
+    Returns the launches."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    import rapiddoc_tpu_torch.pdfio.render as render_mod
+    from rapiddoc_tpu_torch import RapidDoc
+    from rapiddoc_tpu_torch.bench import STAGES, device_busy_share
+    from rapiddoc_tpu_torch.ops.ctc_head import fused_ctc_argmax
+    from rapiddoc_tpu_torch.ops.quant_head import fused_argmax_int8
+    from rapiddoc_tpu_torch.pdfio import classify_pdf, open_pdf, render_page_full
+    from rapiddoc_tpu_torch.utils.trace import GLOBAL_TRACER
+
+    golden = json.loads(asset("text_smoke_golden.json").read_text())
+    pdf = asset("text_smoke_doc.pdf").read_bytes()
+    clean_env()
+    tmp = text_fallback(pdf, "exact")
+    try:
+        render_ms, tiles = {}, {}
+        for dpi, pages in golden["render"]["pages"].items():
+            times = []
+            render_mod.TILE_STATS.update(hits=0, misses=0)
+            for run in range(TEXT_RENDER_RUNS[dpi]):
+                doc = open_pdf(pdf)  # the render caches are the document's
+                for i, want in enumerate(pages):
+                    t0 = time.perf_counter()
+                    img, text, boxes = render_page_full(doc.get_page(i), dpi=int(dpi))
+                    times.append(time.perf_counter() - t0)
+                    check(hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+                          == want["sha256"], f"text: page {i} at {dpi} dpi differs from the golden's")
+                    if "text" in want:
+                        check(json.loads(json.dumps(text)) == want["text"] and boxes == want["boxes"],
+                              f"text: page {i}'s text or image boxes differ at {dpi} dpi")
+            render_ms[dpi] = {"mean": 1e3 * sum(times) / len(times), "max": 1e3 * max(times),
+                              "first_run_mean": 1e3 * sum(times[:len(pages)]) / len(pages)}
+            st = dict(render_mod.TILE_STATS)
+            tiles[dpi] = {**st, "hit_rate": st["hits"] / max(st["hits"] + st["misses"], 1)}
+        check(classify_pdf(pdf) == golden["render"]["classify"], "text: classify_pdf differs")
+
+        def summary(out) -> dict:
+            got = parse_summary(out)
+            got["dets"] = masked_dets(out.model_json)
+            return got
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        for mode, method, extra in (("ocr_fp32", "ocr", {}),
+                                    ("ocr_fp32_int8", "ocr", {"RAPIDDOC_INT8_HEAD": "1"}),
+                                    ("txt_fp32", "txt", {})):
+            for k, v in {"RAPIDDOC_DEMO_LAYOUT": "1", **extra}.items():
+                os.environ[k] = v
+            out = RapidDoc(device="cuda", dtype=torch.float32)(pdf, parse_method=method)
+            os.environ.pop("RAPIDDOC_INT8_HEAD", None)
+            assert_same_parse(summary(out), golden[mode], f"text fp32 {mode}")
+        emit({"phase": "text", "dtype": "fp32", "card": card, "pages": len(pages),
+              "render_ms_per_page": render_ms, "glyph_tiles": tiles,
+              "pages_equal": True, "parses_equal": True})
+
+        # bf16 with the int8 head, every stage on: the timed run
+        os.environ.update(RAPIDDOC_DEMO_LAYOUT="1", RAPIDDOC_INT8_HEAD="1")
+        rapid = RapidDoc(device="cuda")
+        rapid(pdf, parse_method="ocr")  # warm-up
+        torch.cuda.synchronize()
+        analyzer = rapid._stack().analyzer
+        rec, formula = analyzer.ocr.recognizer.session.stats, analyzer.formula_model.stats
+        GLOBAL_TRACER.reset()
+        calls, steps = rec.calls, formula.decode_steps
+        fused_ctc_argmax.launches = 0
+        fused_argmax_int8.launches = 0
+        t0 = time.perf_counter()
+        out = rapid(pdf, parse_method="ocr")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"ctc_head": fused_ctc_argmax.launches, "quant_head": fused_argmax_int8.launches,
+                  "rec_dispatches": rec.calls - calls, "decode_steps": formula.decode_steps - steps}
+        report = GLOBAL_TRACER.report()
+        n = len(out.model_json)
+        kernel_ms, traced_ms = device_busy_share(lambda: rapid(pdf, parse_method="ocr"))
+        vs = compare_layout_parse(parse_summary(out), golden["ocr_bf16_int8"])
+
+        # no fallback font: Aileron at 10 px, held to a band at 72 dpi
+        tmp.cleanup()
+        tmp = text_fallback(pdf, "aileron")
+        stored = np.load(asset("text_smoke_band.npz"))
+        doc = open_pdf(pdf)
+        band = []
+        for i in range(len(pages)):
+            band.append(grey_band(render_page_full(doc.get_page(i), dpi=72)[0], stored[f"page{i}"]))
+        emit({"phase": "text", "dtype": "bf16", "int8_head": True, "card": card,
+              "pages": n, "pages_per_s": n / wall,
+              "stage_ms_per_page": {k: report[k]["total_s"] * 1e3 / n for k in STAGES if k in report},
+              "device_busy_share": kernel_ms / traced_ms, "device_kernel_ms_per_page": kernel_ms / n,
+              "launches": counts, "vs_golden_bf16_int8": vs, "aileron_band_72dpi": band})
+    finally:
+        tmp.cleanup()
+        render_mod._FALLBACK_FONTS_CACHE = None
+        clean_env()
+    for name, per in (("ctc_head", "rec_dispatches"), ("quant_head", "decode_steps")):
+        check(counts[name] > 0, f"text launched the {name} kernel no time")
+        check(counts[name] == counts[per],
+              f"text: {counts[name]} {name} launches for {counts[per]} {per}")
+    lim = TEXT_BF16
+    md = vs["markdown"]
+    check(md["exact_share"] >= lim["min_exact_share"],
+          f"text bf16: only {md['exact_share']:.3f} of lines equal")
+    check(md["cer"] <= lim["max_cer"], f"text bf16: CER {md['cer']:.4f}")
+    check(vs["latex_cer"] <= lim["max_latex_cer"], f"text bf16: LaTeX CER {vs['latex_cer']:.4f}")
+    check(abs(vs["formulas"] - vs["golden_formulas"]) <= lim["max_count_gap"],
+          f"text bf16: {vs['formulas']} formulas, golden {vs['golden_formulas']}")
+    check(abs(vs["images"] - vs["golden_images"]) <= lim["max_count_gap"],
+          f"text bf16: {vs['images']} images, golden {vs['golden_images']}")
+    for i, b in enumerate(band):
+        check(b["mean_abs"] <= TEXT_AILERON_BAND[0] and b["share_over_64"] <= TEXT_AILERON_BAND[1],
+              f"text: the Aileron page {i} is outside its band: {b}")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -2507,6 +2702,7 @@ def main() -> int:
         seal_counts = timed("seal", phase_seal, card)
         image_counts = timed("image_inputs", phase_image_inputs, card)
         vector_counts = timed("vector", phase_vector, card)
+        text_counts = timed("text", phase_text, card)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2534,7 +2730,8 @@ def main() -> int:
                              **{f"ocr_family_{k}": v for k, v in family.items()},
                              **table_ocr, **orientation, **seal_counts,
                              "image_inputs": image_counts["ctc_head"],
-                             "vector": vector_counts["ctc_head"]},
+                             "vector": vector_counts["ctc_head"],
+                             "text": text_counts["ctc_head"]},
         "max_abs_err": k1["max_abs_err"],
         "max_rel_err": k1["max_rel_err"], "matches_plain": True,
         "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
@@ -2553,7 +2750,8 @@ def main() -> int:
                              "pipeline_layout": layout_counts["quant_head"],
                              "formula": k2_launches,
                              "image_inputs": image_counts["quant_head"],
-                             "vector": vector_counts["quant_head"]},
+                             "vector": vector_counts["quant_head"],
+                             "text": text_counts["quant_head"]},
         "max_abs_err": k2["max_abs_err"],
         "max_rel_err": k2["max_rel_err"], "matches_plain": True,
         "ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"],

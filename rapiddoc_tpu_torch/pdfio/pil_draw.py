@@ -568,3 +568,24 @@ def multiply(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 def ink(color, alpha: float) -> tuple[int, int, int, int]:
     """The JAX renderer's RGBA ink: ``int(c * 255)`` per channel."""
     return tuple(int(c * 255) for c in color) + (int(255 * alpha),)
+
+
+def draw_bitmap_rgba(tile: np.ndarray, mask: np.ndarray, ox: int, oy: int, ink) -> None:
+    """``ImageDraw.Draw(tile).draw_bitmap((ox, oy), mask, ink)`` on an RGBA
+    tile (what ``ImageDraw.text`` does with a glyph mask and an RGBA fill):
+    each colour channel blends toward the ink by the mask, taken as 255
+    where the tile is still transparent; alpha blends by the mask."""
+    h, w = mask.shape
+    H, W = tile.shape[:2]
+    cx0, cy0 = max(ox, 0), max(oy, 0)
+    cx1, cy1 = min(ox + w, W), min(oy + h, H)
+    if cx1 <= cx0 or cy1 <= cy0:
+        return
+    m = mask[cy0 - oy:cy1 - oy, cx0 - ox:cx1 - ox].astype(np.int32)
+    out = tile[cy0:cy1, cx0:cx1]
+    a = out[..., 3].astype(np.int32)
+    cm = np.where((m != 0) & (a == 0), 255, m)
+    for i in range(4):
+        mi = m if i == 3 else cm
+        t = out[..., i].astype(np.int32) * (255 - mi) + int(ink[i]) * mi + 128
+        out[..., i] = (((t >> 8) + t) >> 8).astype(np.uint8)

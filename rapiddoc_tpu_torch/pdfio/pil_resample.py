@@ -16,6 +16,12 @@ bytes (``tests/test_torch_pil_draw.py`` holds them to PIL):
   other angle is Pillow's affine NEAREST transform, whose source position
   is kept in 16.16 fixed point; pixels that map outside the source are 0
   (black on RGB, transparent on RGBA).
+- ``rotate(expand=True, resample=BICUBIC)`` of an RGBA text tile (the JAX
+  renderer turns glyph tiles so) goes through premultiplied RGBa: the
+  source position of each pixel centre in double, Pillow's cubic (its
+  ``BICUBIC`` macro, a = -1 form, in its order of operations) across four
+  columns of each of four rows (edge columns clamped; rows past the
+  bottom repeat the row above), the sum truncated to 8 bits.
 """
 from __future__ import annotations
 
@@ -134,19 +140,9 @@ def resize(img: np.ndarray, width: int, height: int, filt: str = "bicubic") -> n
     return out[..., 0] if grey else out
 
 
-def rotate_expand(img: np.ndarray, angle: float) -> np.ndarray:
-    """``Image.rotate(angle, expand=True)`` (NEAREST) of an (H, W[, C])
-    uint8 array."""
-    angle = angle % 360.0
-    if angle == 0:
-        return img.copy()
-    if angle == 180:
-        return img[::-1, ::-1].copy()
-    if angle == 90:
-        return np.rot90(img, 1).copy()
-    if angle == 270:
-        return np.rot90(img, -1).copy()
-    h, w = img.shape[:2]
+def _rotate_matrix(w: int, h: int, angle: float):
+    """``Image.rotate``'s output size and inverse affine matrix for
+    ``expand=True``."""
     cx, cy = w / 2, h / 2
     rad = -math.radians(angle)
     m = [round(math.cos(rad), 15), round(math.sin(rad), 15), 0.0,
@@ -166,7 +162,88 @@ def rotate_expand(img: np.ndarray, angle: float) -> np.ndarray:
     nw = math.ceil(max(xx)) - math.floor(min(xx))
     nh = math.ceil(max(yy)) - math.floor(min(yy))
     m[2], m[5] = transform(-(nw - w) / 2.0, -(nh - h) / 2.0)
+    return nw, nh, m
+
+
+def _fast_turn(img: np.ndarray, angle: float):
+    if angle == 0:
+        return img.copy()
+    if angle == 180:
+        return img[::-1, ::-1].copy()
+    if angle == 90:
+        return np.rot90(img, 1).copy()
+    if angle == 270:
+        return np.rot90(img, -1).copy()
+    return None
+
+
+def rotate_expand(img: np.ndarray, angle: float) -> np.ndarray:
+    """``Image.rotate(angle, expand=True)`` (NEAREST) of an (H, W[, C])
+    uint8 array."""
+    angle = angle % 360.0
+    out = _fast_turn(img, angle)
+    if out is not None:
+        return out
+    h, w = img.shape[:2]
+    nw, nh, m = _rotate_matrix(w, h, angle)
     return _affine_nearest(img, nw, nh, m)
+
+
+def rotate_expand_bicubic(rgba: np.ndarray, angle: float) -> np.ndarray:
+    """``Image.rotate(angle, expand=True, resample=BICUBIC)`` of an RGBA
+    (H, W, 4) uint8 array: premultiplied to RGBa, Pillow's affine BICUBIC
+    filter, back to RGBA."""
+    angle = angle % 360.0
+    out = _fast_turn(rgba, angle)
+    if out is not None:
+        return out
+    h, w = rgba.shape[:2]
+    nw, nh, m = _rotate_matrix(w, h, angle)
+    return _unpremultiply(_affine_bicubic(_premultiply(rgba), nw, nh, m))
+
+
+def _cubic(v1, v2, v3, v4, d):
+    """Pillow's BICUBIC macro (double precision, its order of operations)."""
+    p1 = v2
+    p2 = -v1 + v3
+    p3 = 2 * (v1 - v2) + v3 - v4
+    p4 = -v1 + v2 - v3 + v4
+    return p1 + d * (p2 + d * (p3 + d * p4))
+
+
+def _affine_bicubic(img: np.ndarray, out_w: int, out_h: int, a) -> np.ndarray:
+    """ImagingGenericTransform with the affine map and bicubic_filter32RGB:
+    the source position of each pixel centre in double, 0 outside the
+    source, edge rows and columns repeated, each band truncated to 8 bits."""
+    h, w = img.shape[:2]
+    xs = np.arange(out_w, dtype=np.float64)[None, :] + 0.5
+    ys = np.arange(out_h, dtype=np.float64)[:, None] + 0.5
+    xin = a[0] * xs + a[1] * ys + a[2]
+    yin = a[3] * xs + a[4] * ys + a[5]
+    inside = (xin >= 0.0) & (xin < w) & (yin >= 0.0) & (yin < h)
+    out = np.zeros((out_h, out_w, img.shape[2]), np.uint8)
+    xi, yi = xin[inside] - 0.5, yin[inside] - 0.5
+    x = np.floor(xi).astype(np.int64)
+    y = np.floor(yi).astype(np.int64)
+    dx, dy = xi - x, yi - y
+    x -= 1
+    y -= 1
+    cols = [np.clip(x + k, 0, w - 1) for k in range(4)]
+    src = img.astype(np.float64)
+    rows = []
+    prev = None
+    for k in range(4):
+        yk = y + k
+        ok = (yk >= 0) & (yk < h)
+        row = src[np.clip(yk, 0, h - 1)]
+        v = _cubic(*(row[np.arange(len(yk)), c] for c in cols), dx[:, None])
+        if k > 0:
+            v = np.where(ok[:, None], v, prev)
+        rows.append(v)
+        prev = v
+    v = _cubic(*rows, dy[:, None])
+    out[inside] = np.where(v <= 0.0, 0, np.where(v >= 255.0, 255, np.trunc(np.clip(v, 0, 255)))).astype(np.uint8)
+    return out
 
 
 def _affine_nearest(img: np.ndarray, out_w: int, out_h: int, a) -> np.ndarray:

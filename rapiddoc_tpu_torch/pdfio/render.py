@@ -24,7 +24,19 @@ cv2 calls become numpy, each held byte-equal to Pillow 12.1 or OpenCV:
   the fill colour through their BICUBIC-resized stencil, unflipped and
   unturned, as in the JAX package;
 - Type3 glyphs run their CharProc content streams under FontMatrix x trm,
-  as the JAX package does, with the text state saved and restored.
+  as the JAX package does, with the text state saved and restored;
+- text (``on_show_char``) is drawn as the JAX package draws it with PIL
+  and FreeType: per character, a face from the font's embedded program
+  (TrueType, OpenType, bare CFF or Type1, read by ``sfnt``, ``cff`` and
+  ``type1``) at the rounded pixel size, or the fallback face when the
+  program is missing, broken or draws no ink for the character (the
+  first system font that opens: ``RAPIDDOC_FALLBACK_FONT``, DejaVu,
+  Liberation, Noto or FreeSans, else ``ImageFont.load_default()``'s
+  Aileron at 10 px, shipped in ``assets/``); the glyph tile is drawn
+  (``ft_face`` and ``ft_raster``, FreeType's outline scaling and smooth
+  rasterizer) and pasted through its alpha, upright or turned with PIL's
+  BICUBIC ``rotate``, with the JAX package's run, face and tile caches at
+  document scope. FreeType's hinting is not replayed (``ft_face``).
 
 The JAX package allocates a full-canvas layer for every clipped fill or
 stroke; here every layer covers only the shape's rows and columns, and
@@ -33,9 +45,9 @@ of one ink commute), which gives the same bytes.
 
 What the JAX package would draw and this module does not draw yet raises
 NotImplementedError naming its ROADMAP item, and is never left as
-background: text drawn with a font program or a system font (and a Type3
-glyph without a CharProc, which the JAX package draws so), pattern fills,
-shadings and the codecs ``pdfio.images`` does not take. The content
+background: faces of bitmap strikes and text that needs complex shaping
+(``ft_face``), pattern fills, shadings and the codecs ``pdfio.images``
+does not take. The content
 interpreter skips an operator that raises, as the JAX package's does; so a
 hook records what it cannot draw, inside a Type3 glyph too, and
 ``render_page_full`` raises it after the pass.
@@ -43,24 +55,171 @@ hook records what it cannot draw, inside a Type3 glyph too, and
 from __future__ import annotations
 
 import math
+import logging
 from dataclasses import replace
+from pathlib import Path
 
 import numpy as np
 
 from ..models.ocr.pre_post import resize_area, resize_linear
 from ..utils.unported import not_ported
 from . import pil_draw
+from .ft_face import Face, open_program
 from .content import ContentInterpreter, Matrix, mat_apply, mat_mul, mat_scale_of
 from .cos import Stream
 from .document import PdfPage
 from .fonts import Font
 from .images import xobject_to_array
-from .pil_resample import resize, rotate_expand
+from .pil_resample import resize, rotate_expand, rotate_expand_bicubic
 from .text import page_base_ctm
 
 # placements that the JAX package resizes with cv2 (at least this many
 # destination pixels, RGB or grey); the rest go through PIL BILINEAR
 CV2_MIN_PIXELS = 16384
+
+
+_DEFAULT_FONT = Path(__file__).resolve().parent.parent / "assets" / "aileron_pil_default.ttf"
+
+
+def _discover_fallback_fonts() -> list[str]:
+    """Candidate system fonts for glyphs the embedded programs can't map,
+    in the JAX package's order: ``RAPIDDOC_FALLBACK_FONT``, then DejaVu,
+    Liberation, Noto or FreeSans under ``/usr/share/fonts``, Helvetica
+    (mac) or Arial (Windows), and as a last resort any ``.ttf`` there."""
+    import glob as _glob
+    import os as _os
+
+    cands: list[str] = []
+    env = _os.environ.get("RAPIDDOC_FALLBACK_FONT")
+    if env:
+        cands.append(env)
+    cands.append("/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf")
+    patterns = [
+        "/usr/share/fonts/**/DejaVuSans.ttf",
+        "/usr/share/fonts/**/LiberationSans-Regular.ttf",
+        "/usr/share/fonts/**/NotoSans-Regular.ttf",
+        "/usr/share/fonts/**/FreeSans.ttf",
+        "/System/Library/Fonts/Helvetica.ttc",
+        "C:/Windows/Fonts/arial.ttf",
+    ]
+    for pat in patterns:
+        if "*" in pat:
+            cands.extend(sorted(_glob.glob(pat, recursive=True))[:1])
+        elif _os.path.exists(pat):
+            cands.append(pat)
+    if not any(_os.path.exists(c) for c in cands):
+        cands.extend(sorted(_glob.glob("/usr/share/fonts/**/*.ttf", recursive=True))[:1])
+    return cands
+
+
+_FALLBACK_FONTS_CACHE: list[str] | None = None
+# glyph-tile cache lookups of the text path (upright and turned tiles),
+# for the measurements; reset by whoever reads them
+TILE_STATS = {"hits": 0, "misses": 0}
+_SYSTEM_PROGRAMS: dict[str, tuple] = {}
+_DEFAULT_FACE: list = []
+
+
+def _fallback_fonts() -> list[str]:
+    """The candidates, found once (the first time a fallback glyph is
+    needed)."""
+    global _FALLBACK_FONTS_CACHE
+    if _FALLBACK_FONTS_CACHE is None:
+        _FALLBACK_FONTS_CACHE = _discover_fallback_fonts()
+    return _FALLBACK_FONTS_CACHE
+
+
+def _system_face(path: str, px: int) -> Face:
+    parsed = _SYSTEM_PROGRAMS.get(path)
+    if parsed is None:
+        with open(path, "rb") as f:
+            parsed = open_program(f.read())
+        _SYSTEM_PROGRAMS[path] = parsed
+    return Face(None, px, parsed=parsed)
+
+
+def default_face() -> Face:
+    """``ImageFont.load_default()``: Pillow's embedded Aileron Regular
+    subset at 10 px, laid out with the BASIC engine, whatever the text
+    size."""
+    if not _DEFAULT_FACE:
+        _DEFAULT_FACE.append(Face(_DEFAULT_FONT.read_bytes(), 10, layout="basic"))
+    return _DEFAULT_FACE[0]
+
+
+class _FontBank:
+    """Faces per (font, pixel size), as the JAX package caches FreeType
+    faces; each program is parsed once."""
+
+    def __init__(self) -> None:
+        self._cache: dict[tuple[int, int], Face | None] = {}
+        self._broken: set[int] = set()
+        self._fallback_cache: dict[int, Face] = {}
+        self._programs: dict[int, tuple] = {}
+
+    def face(self, font: Font, px: int) -> Face | None:
+        px = max(2, min(int(px), 512))
+        key = (id(font), px)
+        if key in self._cache:
+            return self._cache[key]
+        face = None
+        if font.font_program and id(font) not in self._broken:
+            try:
+                parsed = self._programs.get(id(font))
+                if parsed is None:
+                    parsed = open_program(font.font_program)
+                    self._programs[id(font)] = parsed
+                face = Face(None, px, parsed=parsed)
+            except NotImplementedError:
+                raise
+            except Exception:  # noqa: BLE001 - a program FreeType would refuse
+                self._broken.add(id(font))
+        self._cache[key] = face
+        return face
+
+    def fallback(self, px: int) -> Face:
+        px = max(2, min(int(px), 512))
+        if px not in self._fallback_cache:
+            face = None
+            for path in _fallback_fonts():
+                try:
+                    face = _system_face(path, px)
+                    break
+                except NotImplementedError:
+                    raise
+                except Exception:  # noqa: BLE001 - the next candidate, as in the JAX package
+                    continue
+            if face is None and not getattr(_FontBank, "_warned", False):
+                _FontBank._warned = True
+                logging.getLogger("rapiddoc_tpu_torch.pdfio").warning(
+                    "no scalable system fallback font found (checked %d paths): unmapped "
+                    "glyphs render with the default font; set RAPIDDOC_FALLBACK_FONT=<ttf>",
+                    len(_fallback_fonts()))
+            self._fallback_cache[px] = face or default_face()
+        return self._fallback_cache[px]
+
+    def covers(self, face: Face | None, text: str) -> bool:
+        """Whether the face draws ink for ``text`` (subset fonts often
+        can't)."""
+        if face is None:
+            return False
+        try:
+            bbox = face.getbbox(text)
+        except NotImplementedError:
+            raise
+        except Exception:  # noqa: BLE001 - a glyph FreeType would fail to load
+            return False
+        return bbox[2] > bbox[0] and bbox[3] > bbox[1]
+
+
+def _doc_cache(doc, name: str, factory=dict):
+    """A cache kept on the document, as the JAX package keeps its font
+    faces, glyph tiles and per-run values for all pages of a document."""
+    c = getattr(doc, name, None)
+    if c is None:
+        c = factory()
+        setattr(doc, name, c)
+    return c
 
 
 class PageRasterizer(ContentInterpreter):
@@ -79,6 +238,13 @@ class PageRasterizer(ContentInterpreter):
         self._ink: tuple | None = None
         self._polys: list = []
         self._lines: dict[int, list] = {}
+        doc = self.doc
+        self.fontbank: _FontBank = _doc_cache(doc, "_render_fontbank", _FontBank)
+        self._font_covers = _doc_cache(doc, "_render_font_covers")
+        self._glyph_cache = _doc_cache(doc, "_render_glyph_cache")
+        self._run_cache = _doc_cache(doc, "_render_run_cache")
+        self._face_picks = _doc_cache(doc, "_render_face_picks")
+        self._rot_cache = _doc_cache(doc, "_render_rot_cache")
 
     def _fail(self, exc: Exception) -> None:
         """Keep the first failure (render_page_full raises it) and raise
@@ -243,20 +409,125 @@ class PageRasterizer(ContentInterpreter):
     def on_show_char(
         self, code: int, text: str, trm: Matrix, advance: float, font: Font
     ) -> None:
-        # the JAX package draws nothing for invisible or clip-only text,
-        # blank characters and glyphs under one pixel; Type3 glyphs are
-        # content streams it runs
-        if self.gs.render_mode in (3, 7):
+        gs = self.gs
+        if gs.render_mode in (3, 7):  # invisible / clip-only
             return
-        type3 = getattr(font, "subtype", "") == "Type3"
-        if type3 and self._draw_type3(code, font, trm):
+        if getattr(font, "subtype", "") == "Type3" and self._draw_type3(code, font, trm):
             return
-        if not text or text.isspace() or math.hypot(trm[2], trm[3]) < 1.0:
+        if not text or text.isspace():
             return
-        if type3:
-            self._fail(not_ported("a Type3 glyph without a CharProc (drawn with a system "
-                                  "font)", "glyphs"))
-        self._fail(not_ported("text rendering", "glyphs"))
+        try:
+            self._flush()
+            self._draw_text(text, trm, font)
+        except NotImplementedError as exc:
+            self._fail(exc)
+
+    def _draw_text(self, text: str, trm: Matrix, font: Font) -> None:
+        gs = self.gs
+        a, b, c, d, e, f = trm
+        # (colour, rotation, pixel size) depend only on trm's linear part
+        # and the fill state: one lookup per character, at document scope
+        rkey = (a, b, c, d, gs.fill_color, gs.fill_alpha, id(font))
+        run = self._run_cache.get(rkey)
+        if run is None:
+            px = math.hypot(c, d)
+            if px < 1.0:
+                run = (None, 0.0, None)
+            else:
+                color = tuple(int(v * 255) for v in gs.fill_color) + (int(255 * gs.fill_alpha),)
+                rotation = math.degrees(math.atan2(b, a)) % 360.0
+                upright = rotation < 0.5 or rotation > 359.5
+                run = (color, rotation if not upright else 0.0, px)
+            if len(self._run_cache) > 4096:
+                self._run_cache.clear()
+            self._run_cache[rkey] = run
+        color, rotation, px = run
+        if color is None:
+            return
+        face = self._pick_face(font, text, px)
+        if face is None:
+            return
+        if rotation == 0.0:
+            self._draw_cached(text, face, color, (e, f))
+        else:
+            self._draw_rotated(text, face, color, (e, f), rotation)
+
+    def _pick_face(self, font: Font, text: str, px: float) -> Face | None:
+        px_r = round(px)
+        pick_key = (id(font), text[:1], px_r)
+        face = self._face_picks.get(pick_key)
+        if face is not None:
+            return face
+        face = self.fontbank.face(font, px_r)
+        key = (id(font), text[:1])
+        covered = self._font_covers.get(key)
+        if covered is None:
+            covered = self.fontbank.covers(face, text)
+            self._font_covers[key] = covered
+        if not covered:
+            face = self.fontbank.fallback(px_r)
+        self._face_picks[pick_key] = face
+        return face
+
+    def _draw_cached(self, text: str, face: Face, color: tuple, origin) -> None:
+        """Glyph-tile cache: each (face, text, colour) is drawn once onto an
+        RGBA tile (``ImageDraw.text`` with anchor ``ls``); repeats paste
+        the tile through its own alpha."""
+        key = (id(face), text, color)
+        entry = self._glyph_cache.get(key)
+        TILE_STATS["misses" if entry is None else "hits"] += 1
+        if entry is None:
+            try:
+                bbox = face.getbbox(text, anchor="ls")
+            except NotImplementedError:
+                raise
+            except Exception:  # noqa: BLE001 - the JAX package draws nothing then
+                return
+            w, h = bbox[2] - bbox[0], bbox[3] - bbox[1]
+            if w <= 0 or h <= 0 or w > 2048 or h > 2048:
+                return
+            tile = np.zeros((h, w, 4), np.uint8)
+            mask, (mx, my) = face.getmask(text, anchor="ls")
+            pil_draw.draw_bitmap_rgba(tile, mask, -bbox[0] + mx, -bbox[1] + my, color)
+            if len(self._glyph_cache) > 20000:
+                self._glyph_cache.clear()
+            entry = (tile, bbox[0], bbox[1])
+            self._glyph_cache[key] = entry
+        tile, dx, dy = entry
+        x, y = origin
+        pil_draw.paste_mask(self.canvas, tile[..., :3], tile[..., 3], int(x + dx), int(y + dy))
+
+    def _draw_rotated(self, text: str, face: Face, color: tuple, origin, rotation: float) -> None:
+        """A tile drawn with the pad of 4, turned by ``-rotation`` with PIL's
+        BICUBIC ``rotate(expand=True)`` and centred on the glyph origin, as
+        the JAX package places it; cached per (face, text, colour,
+        rotation)."""
+        key = (id(face), text, color, round(rotation, 2))
+        rotated = self._rot_cache.get(key)
+        TILE_STATS["misses" if rotated is None else "hits"] += 1
+        if rotated is None:
+            try:
+                bbox = face.getbbox(text)
+            except NotImplementedError:
+                raise
+            except Exception:  # noqa: BLE001 - the JAX package draws nothing then
+                return
+            pad = 4
+            w = bbox[2] - bbox[0] + 2 * pad
+            h = bbox[3] - bbox[1] + 2 * pad
+            if w <= 0 or h <= 0 or w > 4096 or h > 4096:
+                return
+            tile = np.zeros((h, w, 4), np.uint8)
+            mask, (mx, my) = face.getmask(text)
+            pil_draw.draw_bitmap_rgba(tile, mask, pad - bbox[0] + mx, pad - bbox[1] + my, color)
+            rotated = rotate_expand_bicubic(tile, -rotation)
+            if len(self._rot_cache) > 8192:
+                self._rot_cache.clear()
+            self._rot_cache[key] = rotated
+        ox, oy = origin
+        rh, rw = rotated.shape[:2]
+        pil_draw.paste_mask(self.canvas, rotated[..., :3], rotated[..., 3],
+                            int(ox - rw / 2), int(oy - rh / 2))
 
     def _draw_type3(self, code: int, font: Font, trm: Matrix) -> bool:
         """Run a Type3 glyph's CharProc under FontMatrix x trm; False when

@@ -190,6 +190,14 @@ def _chip_smoke():
     return mod
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Few torch threads while this file runs (``tests/torch_threads.py``)."""
+    from torch_threads import capped_threads
+
+    yield from capped_threads(4)
+
+
 @pytest.fixture(scope="module")
 def golden() -> dict:
     return json.loads(GOLDEN_JSON.read_text())

@@ -1,5 +1,5 @@
 """The port imports torch, numpy, scipy and the standard library only:
-no jax, flax, cv2, PIL, and nothing of the JAX package. The card's
+no jax, flax, cv2, PIL, fontTools, and nothing of the JAX package. The card's
 machine is not guaranteed any of those, so this is the CPU-side guard."""
 import ast
 import os
@@ -10,7 +10,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "rapiddoc_tpu_torch"
-BANNED = ("jax", "jaxlib", "flax", "cv2", "PIL", "rapiddoc_tpu")
+BANNED = ("jax", "jaxlib", "flax", "cv2", "PIL", "fontTools", "rapiddoc_tpu")
 
 
 def _port_files() -> list[Path]:

@@ -47,6 +47,14 @@ TIE_TOL = Fraction(1, 10_000)
 cv2 = pytest.importorskip("cv2")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Few torch threads while this file runs (``tests/torch_threads.py``)."""
+    from torch_threads import capped_threads
+
+    yield from capped_threads(4)
+
+
 @pytest.fixture(scope="module")
 def pages() -> list[np.ndarray]:
     from rapiddoc_tpu_torch.pdfio import open_pdf, render_page_full

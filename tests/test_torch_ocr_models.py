@@ -29,6 +29,14 @@ STD = np.array([0.229, 0.224, 0.225], np.float32)
 THRESH = 0.3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Few torch threads while this file runs (``tests/torch_threads.py``)."""
+    from torch_threads import capped_threads
+
+    yield from capped_threads(4)
+
+
 @pytest.fixture(scope="module")
 def page():
     with np.load(PAGES) as z:

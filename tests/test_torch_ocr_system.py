@@ -141,6 +141,14 @@ def assert_same_output(got: list[list[dict]], want: list[list[dict]],
             assert abs(g["score"] - w["score"]) <= score_tol
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Few torch threads while this file runs (``tests/torch_threads.py``)."""
+    from torch_threads import capped_threads
+
+    yield from capped_threads(4)
+
+
 @pytest.fixture(scope="module")
 def pages():
     return make_pages()

@@ -16,7 +16,11 @@ Pillow's bytes:
 - ``Image.resize`` BILINEAR and BICUBIC of L, RGB and RGBA images,
   shrinking and enlarging, to and from 1 px;
 - ``Image.rotate(angle, expand=True)`` (NEAREST) at angles in 45-135 and
-  225-315 degrees, on RGB and RGBA.
+  225-315 degrees, on RGB and RGBA;
+- the text path's pieces: ``ImageDraw.text`` onto a transparent RGBA tile
+  with an RGBA fill (``draw_bitmap`` of a glyph mask, twice over the same
+  pixels), the tile pasted through its own alpha, and the RGBA tile's
+  ``rotate(angle, expand=True, resample=BICUBIC)``.
 """
 import numpy as np
 import pytest
@@ -204,3 +208,41 @@ def test_rotate_expand_equals_pil(mode):
         want = np.asarray(Image.fromarray(arr, mode).rotate(-angle, expand=True))
         got = pil_resample.rotate_expand(arr, -angle)
         assert got.shape == want.shape and np.array_equal(got, want), (angle, h, w)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_text_tile_equals_pil(seed):
+    """ImageDraw.text's draw_bitmap onto an RGBA tile: two masks (the
+    second over the first's pixels), then the tile pasted onto an RGB
+    canvas through its alpha."""
+    rng = np.random.default_rng(seed)
+    h, w = rng.integers(3, 30, 2)
+    tile = Image.new("RGBA", (int(w), int(h)), (0, 0, 0, 0))
+    arr = np.zeros((h, w, 4), np.uint8)
+    draw = ImageDraw.Draw(tile)
+    for _ in range(2):
+        mh, mw = rng.integers(1, 30, 2)
+        mask = rng.integers(0, 256, (mh, mw)).astype(np.uint8)
+        mask[rng.random((mh, mw)) < 0.3] = 0
+        ink = tuple(int(v) for v in rng.integers(0, 256, 4))
+        ox, oy = (int(v) for v in rng.integers(-5, 10, 2))
+        draw.draw.draw_bitmap((ox, oy), Image.fromarray(mask, "L").im, draw.draw.draw_ink(ink))
+        pil_draw.draw_bitmap_rgba(arr, mask, ox, oy, ink)
+        assert np.array_equal(arr, np.asarray(tile)), seed
+    canvas = rng.integers(0, 256, (40, 50, 3)).astype(np.uint8)
+    want = Image.fromarray(canvas.copy())
+    x0, y0 = (int(v) for v in rng.integers(-10, 45, 2))
+    want.paste(tile, (x0, y0), tile)
+    pil_draw.paste_mask(canvas, arr[..., :3], arr[..., 3], x0, y0)
+    assert np.array_equal(canvas, np.asarray(want))
+
+
+@pytest.mark.parametrize("angle", [30, -30, 330, 12.5, 45, 90, 123.4, 180, 270, -90.0])
+def test_rotate_bicubic_rgba_equals_pil(angle):
+    rng = np.random.default_rng(int(abs(angle) * 10))
+    for h, w in ((1, 1), (7, 19), (30, 12)):
+        a = rng.integers(0, 256, (h, w, 4)).astype(np.uint8)
+        a[..., 3] = np.where(rng.random((h, w)) < 0.4, 0, a[..., 3])
+        want = np.asarray(Image.fromarray(a, "RGBA").rotate(angle, expand=True,
+                                                            resample=Image.BICUBIC))
+        assert np.array_equal(pil_resample.rotate_expand_bicubic(a, angle), want), (angle, h, w)

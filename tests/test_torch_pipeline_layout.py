@@ -238,6 +238,14 @@ def assert_dets_equal(got: list[dict], want: list[dict]) -> None:
                     assert g[key] == w[key], key
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Few torch threads while this file runs (``tests/torch_threads.py``)."""
+    from torch_threads import capped_threads
+
+    yield from capped_threads(4)
+
+
 @pytest.fixture(scope="module")
 def golden() -> dict:
     return json.loads(GOLDEN_JSON.read_text())

@@ -10,12 +10,15 @@ unrotated), clipped by a rectangle or partly off the page; and on pages
 of vector paths (fills, strokes, even-odd, translucent ink, a stroke
 under a rectangular clip), a clip that is not a rectangle, an image
 resized to under 16384 pixels, a rotation by 60 degrees, an image mask,
-a soft mask and Type3 glyphs (an outline and an inline image mask).
-What it does not draw yet must raise NotImplementedError: text that
-shows ink (Type1 Helvetica, and a Type3 glyph without a CharProc, which
-the JAX package draws with a system font), a decode array, a shading and
-a pattern fill.
+a soft mask and Type3 glyphs (an outline and an inline image mask); and
+on text drawn through FreeType with an unhinted fallback font: Type1
+Helvetica and a Type3 glyph without a CharProc (both the fallback), an
+embedded TrueType font upright and turned by 30 and 90 degrees.
+What it does not draw yet must raise NotImplementedError: a face of
+bitmap strikes, text that needs complex shaping, a decode array, a
+shading and a pattern fill.
 """
+import sys
 import zlib
 from pathlib import Path
 
@@ -29,14 +32,17 @@ from rapiddoc_tpu_torch.models.ocr.pre_post import resize_area
 from rapiddoc_tpu_torch.pdfio import open_pdf, render_page_full
 
 REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO / "tests"))
 FIXTURE = REPO / "rapiddoc_tpu_torch" / "assets" / "ocr_smoke_doc.pdf"
 
 
 def image_pdf(content: bytes, img: np.ndarray, flate: bool = True, extra: bytes = b"",
-              media=(0, 0, 400, 300), res: bytes = b"", objs: dict | None = None) -> bytes:
+              media=(0, 0, 400, 300), res: bytes = b"", objs: dict | None = None,
+              fonts: bytes = b"") -> bytes:
     """One page drawing ``content`` with the raw-sample image XObject
-    /Im0 (RGB or grey, 8 bits) and the font /F1; ``res`` adds resource
-    entries and ``objs`` objects numbered from 7."""
+    /Im0 (RGB or grey, 8 bits) and the fonts /F1 and /T3; ``res`` adds
+    resource entries, ``fonts`` font entries and ``objs`` objects numbered
+    from 7."""
     h, w = img.shape[:2]
     cs = b"/DeviceRGB" if img.ndim == 3 else b"/DeviceGray"
     data = zlib.compress(img.tobytes()) if flate else img.tobytes()
@@ -45,7 +51,7 @@ def image_pdf(content: bytes, img: np.ndarray, flate: bool = True, extra: bytes 
         1: b"<< /Type /Catalog /Pages 2 0 R >>",
         2: b"<< /Type /Pages /Kids [3 0 R] /Count 1 >>",
         3: b"<< /Type /Page /Parent 2 0 R /MediaBox [%d %d %d %d] " % media
-           + b"/Resources << /XObject << /Im0 5 0 R >> /Font << /F1 6 0 R /T3 7 0 R >> "
+           + b"/Resources << /XObject << /Im0 5 0 R >> /Font << /F1 6 0 R /T3 7 0 R " + fonts + b">> "
            + res + b" >> /Contents 4 0 R >>",
         4: b"<< /Length %d >>\nstream\n" % len(content) + content + b"\nendstream",
         5: b"<< /Type /XObject /Subtype /Image /Width %d /Height %d /ColorSpace " % (w, h)
@@ -167,21 +173,95 @@ def test_vector_cases_equal_jax(name, dpi):
     assert boxes == jboxes
 
 
+def _text_font_objs() -> dict:
+    """Objects 10-17: an embedded unhinted TrueType font /TT (seeded random
+    glyphs for A-Z a-z), a copy whose table directory claims a bitmap
+    strike (EBDT) /BM, and Helvetica with a ToUnicode map to Arabic /AR."""
+    import torch_font_programs as fb
+
+    rng = np.random.default_rng(17)
+    letters = [chr(c) for c in list(range(65, 91)) + list(range(97, 123))]
+    prog = fb.build_ttf({f"g{c}": fb.random_glyph(rng, scale=0.6) for c in letters},
+                        {ord(c): f"g{c}" for c in letters})
+    bitmap = prog.replace(b"name", b"EBDT", 1)
+    cmap = (b"/CIDInit /ProcSet findresource begin 12 dict begin begincmap 1 begincodespacerange "
+            b"<00> <FF> endcodespacerange 2 beginbfchar <41> <0633> <42> <0644> endbfchar "
+            b"endcmap CMapName currentdict /CMap defineresource pop end end")
+
+    def font(num, prog_bytes, name):
+        return {
+            num: b"<< /Type /Font /Subtype /TrueType /BaseFont /%s /FirstChar 65 /LastChar 122 "
+                 b"/Widths [%s] /FontDescriptor %d 0 R /Encoding /WinAnsiEncoding >>"
+                 % (name, b" ".join([b"600"] * 58), num + 1),
+            num + 1: b"<< /Type /FontDescriptor /FontName /%s /Flags 32 /FontBBox [0 -200 1000 "
+                     b"900] /ItalicAngle 0 /Ascent 800 /Descent -200 /CapHeight 700 /StemV 80 "
+                     b"/FontFile2 %d 0 R >>" % (name, num + 2),
+            num + 2: b"<< /Length %d >>\nstream\n" % len(prog_bytes) + prog_bytes + b"\nendstream",
+        }
+
+    return {**font(10, prog, b"CodeTT"), **font(13, bitmap, b"CodeBitmap"),
+            16: b"<< /Type /Font /Subtype /Type1 /BaseFont /Helvetica /ToUnicode 17 0 R >>",
+            17: b"<< /Length %d >>\nstream\n" % len(cmap) + cmap + b"\nendstream"}
+
+
+TEXT_FONTS = b"/TT 10 0 R /BM 13 0 R /AR 16 0 R "
+# text the JAX package draws through FreeType, with an unhinted fallback
+# font (RAPIDDOC_FALLBACK_FONT): name -> content
+TEXT = {
+    "text": b"BT /F1 24 Tf 50 150 Td (Hello) Tj ET",
+    "type3_without_charproc": b"BT /T3 24 Tf 50 150 Td (AC) Tj ET",
+    "truetype_turned": b"0.6 0.1 0.1 rg BT /TT 30 Tf 40 200 Td (Glyphs) Tj ET "
+                       b"BT /TT 20 Tf 0.866 0.5 -0.5 0.866 60 40 Tm (Turned) Tj ET "
+                       b"BT /TT 16 Tf 0 1 -1 0 360 40 Tm (Upward) Tj ET",
+}
+
+
+@pytest.fixture
+def unhinted_fallback(tmp_path, monkeypatch):
+    """An unhinted TrueType fallback font (seeded random glyphs for
+    A-Z a-z) for the JAX package and the port alike."""
+    import torch_font_programs as fb
+
+    import rapiddoc_tpu.pdfio.render as jax_render_mod
+    import rapiddoc_tpu_torch.pdfio.render as port_render_mod
+
+    rng = np.random.default_rng(3)
+    letters = [chr(c) for c in list(range(65, 91)) + list(range(97, 123))]
+    path = tmp_path / "fallback.ttf"
+    path.write_bytes(fb.build_ttf({f"g{c}": fb.random_glyph(rng, scale=0.7) for c in letters},
+                                  {ord(c): f"g{c}" for c in letters}))
+    monkeypatch.setenv("RAPIDDOC_FALLBACK_FONT", str(path))
+    for mod in (jax_render_mod, port_render_mod):
+        monkeypatch.setattr(mod, "_FALLBACK_FONTS_CACHE", None)
+
+
+@pytest.mark.parametrize("name", list(TEXT))
+@pytest.mark.parametrize("dpi", [200, 72])
+def test_text_cases_equal_jax(name, dpi, unhinted_fallback):
+    got, want, boxes, jboxes, _ = both(image_pdf(TEXT[name], RGB, fonts=TEXT_FONTS,
+                                                 objs=_text_font_objs()), dpi)
+    assert np.array_equal(got, want)
+    assert boxes == jboxes
+
+
 UNSUPPORTED = {
-    "text": (b"BT /F1 24 Tf 50 150 Td (Hello) Tj ET", {}),
+    "bitmap_strike_face": (b"BT /BM 24 Tf 50 150 Td (Hello) Tj ET", {"text": True}),
+    "complex_shaping": (b"BT /AR 24 Tf 50 150 Td (AB) Tj ET", {"text": True}),
     "decode_array": (b"q 300 0 0 200 40 50 cm /Im0 Do Q", {"extra": b"/Decode [1 0 1 0 1 0] "}),
     "shading": (b"q 10 10 200 100 re W n /Sh0 sh Q",
                 {"res": b"/Shading << /Sh0 " + _SHADING + b" >>"}),
     "pattern_fill": (b"/Pattern cs /P0 scn 10 10 100 50 re f",
                      {"res": b"/Pattern << /P0 << /PatternType 2 /Shading " + _SHADING
                              + b" >> >>"}),
-    "type3_without_charproc": (b"BT /T3 24 Tf 50 150 Td (AC) Tj ET", {}),
 }
 
 
 @pytest.mark.parametrize("name", list(UNSUPPORTED))
 def test_content_not_ported_raises(name):
     content, kw = UNSUPPORTED[name]
+    kw = dict(kw)
+    if kw.pop("text", False):
+        kw = dict(kw, fonts=TEXT_FONTS, objs=_text_font_objs())
     page = open_pdf(image_pdf(content, RGB, **kw)).get_page(0)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         render_page_full(page, dpi=200, with_text=False)

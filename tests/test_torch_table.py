@@ -242,14 +242,11 @@ def few_threads():
 
 
 def capped_threads(n: int):
-    import torch
+    """See ``tests/torch_threads.py``: at most ``n`` threads, and a share of
+    the cores under xdist."""
+    from torch_threads import capped_threads as capped
 
-    saved = torch.get_num_threads()
-    torch.set_num_threads(min(n, saved))
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
+    yield from capped(n)
 
 
 @pytest.fixture(scope="module")
