@@ -123,6 +123,15 @@ per shape or run):
           golden; bf16 timed, launches held to the rec dispatches and
           decode steps; with no fallback font (Aileron at 10 px, which
           FreeType hints) the 72 dpi pages within TEXT_AILERON_BAND
+  onnx    the ONNX interpreter in fp32 (TF32 off): Magika on 13 byte
+          inputs (labels equal to the JAX package's golden, scores within
+          1e-4, ms a call); the contract graphs written by the port's
+          writer from seeds (tests/test_onnx_family_graphs.py's four
+          families and the 1024 x 1024 wired-table contract, outputs held
+          to the golden, ms each); RapidDoc with a pp_doclayoutv3.onnx in
+          a temporary models dir (Markdown and content list equal to the
+          JAX package's, K1's launches held to the rec dispatches) and on
+          suffix-less bytes (the sniff and the Markdown equal)
 Then a timing line (seconds by phase), a ``{"kernels": [...]}`` line,
 the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
@@ -2656,6 +2665,546 @@ def phase_text(card: str) -> dict:
     return counts
 
 
+# ------------------------------------------------ the eleventh slice's path
+
+# Magika's scores against the JAX package's golden on the card, fp32 with
+# TF32 off; the contract graphs' float outputs as
+# tests/test_onnx_family_graphs.py holds them against numpy
+MAGIKA_SCORE_TOL = 1e-4
+GRAPH_ATOL = GRAPH_RTOL = 2e-4
+GRAPH_DET_TOL = 0.05  # px, the RT-DETR graph's boxes
+ONNX_TIMED_RUNS = 10
+# suffix-less bytes: the OCR fixture's first page behind a short prefix
+# that is not %PDF (Magika still calls it a PDF)
+SUFFIXLESS_PREFIX = b"\r\n"
+# the page of the layout fixture whose golden dets the ONNX layout emits
+ONNX_LAYOUT_PAGE = 0
+
+
+def magika_corpus() -> dict[str, bytes]:
+    """Byte inputs for Magika: the port's PDF fixtures, a PNG, a JPEG, a
+    docx-shaped zip, Python, Markdown, JSON, CSV, HTML and plain text,
+    all built in code or committed."""
+    import io
+    import zipfile
+
+    corpus = {name: asset(f"{name}.pdf").read_bytes() for name in (
+        "ocr_smoke_doc", "layout_smoke_doc", "vector_smoke_doc", "text_smoke_doc")}
+    corpus["png"] = asset("image_inputs_page.png").read_bytes()
+    corpus["jpeg"] = asset("image_inputs_page.jpg").read_bytes()
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w", zipfile.ZIP_DEFLATED) as z:
+        z.writestr(zipfile.ZipInfo("[Content_Types].xml", (2024, 1, 1, 0, 0, 0)),
+                   '<?xml version="1.0" encoding="UTF-8" standalone="yes"?>\n<Types xmlns='
+                   '"http://schemas.openxmlformats.org/package/2006/content-types"><Default '
+                   'Extension="xml" ContentType="application/xml"/><Override PartName='
+                   '"/word/document.xml" ContentType="application/vnd.openxmlformats-'
+                   'officedocument.wordprocessingml.document.main+xml"/></Types>')
+        z.writestr(zipfile.ZipInfo("word/document.xml", (2024, 1, 1, 0, 0, 0)),
+                   '<?xml version="1.0" encoding="UTF-8" standalone="yes"?>\n<w:document '
+                   'xmlns:w="http://schemas.openxmlformats.org/wordprocessingml/2006/main">'
+                   '<w:body>' + "".join(f"<w:p><w:r><w:t>Paragraph {i} of the report."
+                                        "</w:t></w:r></w:p>" for i in range(40))
+                   + "</w:body></w:document>")
+    corpus["docx"] = buf.getvalue()
+    corpus["python"] = "\n".join(
+        ["import json", "from pathlib import Path", "", "",
+         "def load_rows(path: Path) -> list[dict]:",
+         '    """Read one JSON object per line."""', "    rows = []",
+         "    with open(path, encoding=\"utf-8\") as f:", "        for line in f:",
+         "            if line.strip():", "                rows.append(json.loads(line))",
+         "    return rows", "", ""]
+        + [f"def total_{i}(rows):\n    return sum(r.get('v{i}', 0) for r in rows)\n\n"
+           for i in range(20)]
+        + ['if __name__ == "__main__":', "    print(total_0(load_rows(Path('a.jsonl'))))", ""]
+    ).encode()
+    corpus["markdown"] = "\n".join(
+        ["# Document parsing", "", "A short guide to the **pipeline** and its stages.", ""]
+        + [f"## Stage {i}\n\n- reads the page\n- writes `stage_{i}.json`\n\nSee "
+           f"[the notes](notes/{i}.md) for details.\n" for i in range(15)]).encode()
+    corpus["json"] = json.dumps({"pages": [{"index": i, "width": 1654, "height": 2339,
+                                            "blocks": [{"type": "text", "bbox": [10, 20 * j, 400,
+                                                        20 * j + 18]} for j in range(5)]}
+                                           for i in range(12)]}, indent=2).encode()
+    corpus["csv"] = ("id,name,price,quantity\n" + "".join(
+        f"{i},item {i},{(i * 37) % 100}.{i % 10}9,{(i * 13) % 50}\n" for i in range(120))).encode()
+    corpus["html"] = ("<!DOCTYPE html>\n<html>\n<head>\n<meta charset=\"utf-8\">\n<title>Report"
+                      "</title>\n</head>\n<body>\n" + "".join(
+                          f"<div class=\"section\"><h2>Section {i}</h2>\n<p>The table below lists "
+                          f"the results.</p>\n<table><tr><td>{i}</td><td>{i * i}</td></tr></table>"
+                          f"</div>\n" for i in range(20)) + "</body>\n</html>\n").encode()
+    corpus["text"] = ("The committee met on Tuesday to review the annual budget. " * 3 + "\n"
+                      + "".join(f"Item {i}: the members agreed to revisit the proposal next "
+                                f"month, after the survey results are in.\n" for i in range(30))
+                      ).encode()
+    return corpus
+
+
+def suffixless_bytes() -> bytes:
+    """The OCR fixture's first page as a one-page PDF behind
+    SUFFIXLESS_PREFIX."""
+    from rapiddoc_tpu_torch.bench import build_pdf, page_images
+
+    return SUFFIXLESS_PREFIX + build_pdf(page_images(asset("ocr_smoke_doc.pdf").read_bytes())[:1], 1)
+
+
+def _f32(rng, shape, scale=None):
+    import numpy as np
+
+    x = rng.standard_normal(shape)
+    return (x * scale if scale is not None else x).astype(np.float32)
+
+
+def _rtdetr_graph(w):
+    """tests/test_onnx_family_graphs.py's RT-DETR layout family graph (seed
+    0): conv stem, pre-norm attention, exact-GELU FFN, TopK decode,
+    cxcywh -> xyxy in original pixels, If-gated mask head."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    h = wd = 32
+    d, nq, nc, k = 8, 64, 3, 10
+    img = rng.standard_normal((1, 3, h, wd)).astype(np.float32)
+    names = ("stem_w", "stem_b", "ln1_s", "ln1_b", "w_qkv", "ln2_s", "ln2_b", "w_ff1", "w_ff2",
+             "w_score", "w_box", "mask_w")
+    shapes = ((d, 3, 4, 4), (d,), (d,), (d,), (d, d), (d,), (d,), (d, 2 * d), (2 * d, d),
+              (d, nc), (d, 4), (1, d, 1, 1))
+    scales = (0.3, None, None, None, 0.4, None, None, 0.4, 0.4, 0.5, 0.5, 0.5)
+    inits = {n: _f32(rng, s, c) for n, s, c in zip(names, shapes, scales)}
+    conv = {"strides": [1, 1], "pads": [0, 0, 0, 0], "dilations": [1, 1], "group": 1}
+    then_g = w.SubGraph([
+        w.encode_node("Conv", ["feat", "mask_w", "mask_b"], ["m0"], conv),
+        w.encode_node("Resize", ["m0", "", "mask_scales"], ["m1"], {"mode": "nearest"}),
+        w.encode_node("Sigmoid", ["m1"], ["masks_t"]),
+    ], outputs={"masks_t": (1,)})
+    else_g = w.SubGraph([
+        w.encode_node("Conv", ["feat", "mask_w", "mask_b"], ["z0"], conv),
+        w.encode_node("Resize", ["z0", "", "mask_scales"], ["z1"], {"mode": "nearest"}),
+        w.encode_node("Mul", ["z1", "zero_f"], ["masks_e"]),
+    ], outputs={"masks_e": (1,)})
+    n = w.encode_node
+    nodes = [
+        n("Conv", ["image", "stem_w", "stem_b"], ["feat"], {**conv, "strides": [4, 4]}),
+        n("Reshape", ["feat", "tok_shape"], ["tok0"]),
+        n("Transpose", ["tok0", ], ["tok"], {"perm": [0, 2, 1]}),
+        n("LayerNormalization", ["tok", "ln1_s", "ln1_b"], ["ln1"], {"axis": -1, "epsilon": 1e-5}),
+        n("MatMul", ["ln1", "w_qkv"], ["q"]),
+        n("Transpose", ["q"], ["qT"], {"perm": [0, 2, 1]}),
+        n("MatMul", ["q", "qT"], ["att0"]),
+        n("Mul", ["att0", "inv_sqrt_d"], ["att1"]),
+        n("Softmax", ["att1"], ["att"], {"axis": -1}),
+        n("MatMul", ["att", "q"], ["attn_out"]),
+        n("Add", ["tok", "attn_out"], ["x1"]),
+        n("LayerNormalization", ["x1", "ln2_s", "ln2_b"], ["ln2"], {"axis": -1, "epsilon": 1e-5}),
+        n("MatMul", ["ln2", "w_ff1"], ["ff0"]),
+        n("Gelu", ["ff0"], ["ff1"]),
+        n("MatMul", ["ff1", "w_ff2"], ["ff2"]),
+        n("Add", ["x1", "ff2"], ["x2"]),
+        n("MatMul", ["x2", "w_score"], ["logits"]),
+        n("Sigmoid", ["logits"], ["probs"]),
+        n("MatMul", ["x2", "w_box"], ["box_raw"]),
+        n("Sigmoid", ["box_raw"], ["box_n"]),
+        n("ReduceMax", ["probs"], ["qscore"], {"axes": [-1], "keepdims": 0}),
+        n("ArgMax", ["probs"], ["qlabel"], {"axis": -1, "keepdims": 0}),
+        n("TopK", ["qscore", "k_const"], ["top_s", "top_i"], {"axis": -1, "largest": 1, "sorted": 1}),
+        n("Gather", ["box_n", "top_i"], ["top_box_b"], {"axis": 1}),
+        n("Reshape", ["top_box_b", "box_k_shape"], ["top_box"]),
+        n("Gather", ["qlabel", "top_i"], ["top_l_b"], {"axis": 1}),
+        n("Div", ["im_shape", "scale_factor"], ["orig_hw"]),
+        n("Split", ["top_box"], ["cx", "cy", "bw", "bh"], {"axis": -1, "num_outputs": 4}),
+        n("Mul", ["bw", "half"], ["bw2"]),
+        n("Mul", ["bh", "half"], ["bh2"]),
+        n("Sub", ["cx", "bw2"], ["x0n"]),
+        n("Sub", ["cy", "bh2"], ["y0n"]),
+        n("Add", ["cx", "bw2"], ["x1n"]),
+        n("Add", ["cy", "bh2"], ["y1n"]),
+        n("Concat", ["x0n", "y0n", "x1n", "y1n"], ["xyxy_n"], {"axis": -1}),
+        n("Split", ["orig_hw", ], ["oh", "ow"], {"axis": -1, "num_outputs": 2}),
+        n("Concat", ["ow", "oh", "ow", "oh"], ["whwh"], {"axis": -1}),
+        n("Mul", ["xyxy_n", "whwh"], ["xyxy"]),
+        n("Cast", ["top_l_b", ], ["top_l_f"], {"to": 1}),
+        n("Reshape", ["top_l_f", "col_shape"], ["lab_col"]),
+        n("Reshape", ["top_s", "col_shape"], ["s_col"]),
+        n("Concat", ["lab_col", "s_col", "xyxy"], ["dets"], {"axis": -1}),
+        n("If", ["use_mask"], ["masks"], {"then_branch": then_g, "else_branch": else_g}),
+    ]
+    inits.update({
+        "mask_b": np.zeros((1,), np.float32),
+        "tok_shape": np.asarray([1, d, nq], np.int64),
+        "inv_sqrt_d": np.asarray(1.0 / np.sqrt(d), np.float32),
+        "k_const": np.asarray([k], np.int64),
+        "half": np.asarray([0.5], np.float32),
+        "box_k_shape": np.asarray([k, 4], np.int64),
+        "col_shape": np.asarray([k, 1], np.int64),
+        "mask_scales": np.asarray([1, 1, 4, 4], np.float32),
+        "zero_f": np.asarray(0.0, np.float32),
+    })
+    order = ("stem_w", "stem_b", "ln1_s", "ln1_b", "w_qkv", "ln2_s", "ln2_b", "w_ff1", "w_ff2",
+             "w_score", "w_box", "mask_w", "mask_b", "tok_shape", "inv_sqrt_d", "k_const", "half",
+             "box_k_shape", "col_shape", "mask_scales", "zero_f")
+    data = w.build_model(
+        nodes, {"image": img.shape, "im_shape": (1, 2), "scale_factor": (1, 2), "use_mask": ()},
+        {"dets": (1,), "masks": (1,)}, {k_: inits[k_] for k_ in order}, input_dtypes={"use_mask": 9})
+    feeds = [img, np.asarray([[h, wd]], np.float32), np.asarray([[0.5, 0.5]], np.float32)]
+    return {"rtdetr_mask": (data, feeds + [np.asarray(True)]),
+            "rtdetr_nomask": (data, feeds + [np.asarray(False)])}
+
+
+def _formula_graph(w, seed: int):
+    """The FormulaNet-style greedy AR decode Loop (tests/test_onnx_family_
+    graphs.py, seeds 3, 7 and 11): embedding Gather, attention over a
+    fixed memory, ArgMax, EOS exit, the token stream as a scan output."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    v, d, s = 12, 8, 5
+    emb, w_q, mem, w_out = (rng.standard_normal(sh).astype(np.float32)
+                            for sh in ((v, d), (d, d), (s, d), (d, v)))
+    n = w.encode_node
+    body = w.SubGraph([
+        n("Gather", ["emb", "cur"], ["e"], {"axis": 0}),
+        n("MatMul", ["e", "w_q"], ["q"]),
+        n("MatMul", ["q", "memT"], ["scores"]),
+        n("Softmax", ["scores"], ["alpha"], {"axis": -1}),
+        n("MatMul", ["alpha", "mem"], ["ctx"]),
+        n("MatMul", ["ctx", "w_out"], ["logits"]),
+        n("ArgMax", ["logits"], ["nxt"], {"axis": -1, "keepdims": 0}),
+        n("Equal", ["nxt", "eos"], ["is_eos"]),
+        n("Not", ["is_eos"], ["cout"]),
+        n("Identity", ["nxt"], ["scan_tok"]),
+    ], inputs={"it": (), "cin": (), "cur": ()}, outputs={"cout": (), "nxt": (), "scan_tok": ()},
+        initializers={"emb": emb, "w_q": w_q, "mem": mem, "memT": np.ascontiguousarray(mem.T),
+                      "w_out": w_out, "eos": np.asarray(1, np.int64),
+                      "ax0": np.asarray([0], np.int64)},
+        input_dtypes={"it": 7, "cin": 9, "cur": 7})
+    data = w.build_model([n("Loop", ["m", "c0", "bos"], ["last", "toks"], {"body": body})],
+                         {"bos": ()}, {"last": (1,), "toks": (1,)},
+                         {"m": np.asarray(9, np.int64), "c0": np.asarray(True)},
+                         input_dtypes={"bos": 7})
+    return data, [np.asarray(0, np.int64)]
+
+
+def _unet_graph(w):
+    """The UNET wired-table family graph (seed 5): conv -> pool encoder,
+    nearest Resize, skip Concat, 1x1 head, channel Softmax."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((1, 3, 16, 16)).astype(np.float32)
+    shapes = {"w1": ((4, 3, 3, 3), 0.4), "b1": ((4,), None), "w2": ((8, 4, 3, 3), 0.4),
+              "b2": ((8,), None), "w3": ((2, 12, 1, 1), 0.4), "b3": ((2,), None)}
+    inits = {k: _f32(rng, s, c) for k, (s, c) in shapes.items()}
+    inits["up_scales"] = np.asarray([1, 1, 2, 2], np.float32)
+    def conv(pad):
+        return {"strides": [1, 1], "pads": [pad] * 4, "dilations": [1, 1], "group": 1}
+
+    n = w.encode_node
+    nodes = [
+        n("Conv", ["x", "w1", "b1"], ["c1"], conv(1)),
+        n("Relu", ["c1"], ["r1"]),
+        n("MaxPool", ["r1"], ["p1"], {"kernel_shape": [2, 2], "strides": [2, 2], "pads": [0, 0, 0, 0]}),
+        n("Conv", ["p1", "w2", "b2"], ["c2"], conv(1)),
+        n("Relu", ["c2"], ["r2"]),
+        n("Resize", ["r2", "", "up_scales"], ["u2"], {"mode": "nearest"}),
+        n("Concat", ["r1", "u2"], ["cat"], {"axis": 1}),
+        n("Conv", ["cat", "w3", "b3"], ["head"], conv(0)),
+        n("Softmax", ["head"], ["prob"], {"axis": 1}),
+    ]
+    return w.build_model(nodes, {"x": x.shape}, {"prob": (1,)}, inits), [x]
+
+
+def _slanet_graph(w, seed: int):
+    """The SLANet-style GRU-attention decode Loop (seeds 2 and 9): carried
+    hidden state and token, twin scan outputs (tokens, 8-coord boxes)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    s, c, hd, v = 6, 4, 8, 10
+    names = ("fea", "w_k", "w_h", "v_a", "emb", "w_x", "w_hh", "w_o", "w_b")
+    shapes = ((s, c), (c, hd), (hd, hd), (hd, 1), (v, hd), (c + hd, hd), (hd, hd), (hd, v), (hd, 8))
+    inits = {k: rng.standard_normal(sh).astype(np.float32) for k, sh in zip(names, shapes)}
+    n = w.encode_node
+    body = w.SubGraph([
+        n("MatMul", ["fea", "w_k"], ["fk"]),
+        n("MatMul", ["h", "w_h"], ["hk"]),
+        n("Add", ["fk", "hk"], ["pre"]),
+        n("Tanh", ["pre"], ["t"]),
+        n("MatMul", ["t", "v_a"], ["score"]),
+        n("Softmax", ["score"], ["alpha"], {"axis": 0}),
+        n("Mul", ["alpha", "fea"], ["weighted"]),
+        n("ReduceSum", ["weighted"], ["ctx"], {"axes": [0], "keepdims": 1}),
+        n("Gather", ["emb", "cur"], ["e0"], {"axis": 0}),
+        n("Unsqueeze", ["e0", "ax0"], ["e"]),
+        n("Concat", ["ctx", "e"], ["xcat"], {"axis": -1}),
+        n("MatMul", ["xcat", "w_x"], ["xp"]),
+        n("MatMul", ["h", "w_hh"], ["hp"]),
+        n("Add", ["xp", "hp"], ["hpre"]),
+        n("Tanh", ["hpre"], ["h2"]),
+        n("MatMul", ["h2", "w_o"], ["logits"]),
+        n("MatMul", ["h2", "w_b"], ["braw"]),
+        n("Sigmoid", ["braw"], ["box2"]),
+        n("ArgMax", ["logits"], ["nxt0"], {"axis": -1, "keepdims": 0}),
+        n("Squeeze", ["nxt0", "ax0"], ["nxt"]),
+        n("Equal", ["nxt", "eos"], ["is_eos"]),
+        n("Not", ["is_eos"], ["cout"]),
+        n("Identity", ["nxt"], ["scan_tok"]),
+        n("Squeeze", ["box2", "ax0"], ["scan_box"]),
+    ], inputs={"it": (), "cin": (), "h": (1, hd), "cur": ()},
+        outputs={"cout": (), "h2": (1,), "nxt": (), "scan_tok": (), "scan_box": (1,)},
+        initializers={**inits, "eos": np.asarray(1, np.int64), "ax0": np.asarray([0], np.int64)},
+        input_dtypes={"it": 7, "cin": 9, "cur": 7})
+    data = w.build_model(
+        [n("Loop", ["m", "c0", "h0", "sos"], ["hf", "tok_last", "toks", "boxes"], {"body": body})],
+        {"h0": (1, hd), "sos": ()}, {"hf": (1,), "tok_last": (1,), "toks": (1,), "boxes": (1,)},
+        {"m": np.asarray(8, np.int64), "c0": np.asarray(True)}, input_dtypes={"sos": 7})
+    return data, [np.zeros((1, hd), np.float32), np.asarray(0, np.int64)]
+
+
+def tied_const_graph(w, out_specs: dict, consts: dict, in_shape, metadata=None) -> bytes:
+    """tests/test_registry_assets.py's graph whose constant outputs are
+    tied to the input (ReduceMean(x) * 0 added), so nothing folds."""
+    import numpy as np
+
+    nodes = [w.encode_node("ReduceMean", ["x"], ["m"], {"keepdims": 0}),
+             w.encode_node("Mul", ["m", "zero"], ["z"])]
+    inits = {"zero": np.asarray(0.0, np.float32)}
+    for out_name, arr in consts.items():
+        nodes.append(w.encode_node("Add", [f"{out_name}_c", "z"], [out_name]))
+        inits[f"{out_name}_c"] = arr
+    data = w.build_model(nodes, {"x": in_shape}, out_specs, inits)
+    return w.build_model_with_metadata(data, metadata) if metadata else data
+
+
+def wired_class_map():
+    """The wired-table contract's 1024 x 1024 class map: a 3 x 3 line
+    lattice (horizontal lines 1, vertical 2)."""
+    import numpy as np
+
+    pred = np.zeros((1, 1024, 1024), np.int64)
+    for y in (64, 480, 960):
+        pred[0, y - 3: y + 3, 64:960] = 1
+    for x in (64, 512, 960):
+        pred[0, 64:960, x - 3: x + 3] = 2
+    return pred
+
+
+def onnx_contract_graphs() -> dict:
+    """name -> (graph bytes written by the port's writer, feeds): the four
+    family graphs of tests/test_onnx_family_graphs.py with their seeds,
+    and the wired-table contract at its published 1024 x 1024 input."""
+    import numpy as np
+
+    from rapiddoc_tpu_torch.tools import onnx_writer as w
+
+    graphs = dict(_rtdetr_graph(w))
+    for seed in (3, 7, 11):
+        graphs[f"formula_ar_{seed}"] = _formula_graph(w, seed)
+    graphs["unet"] = _unet_graph(w)
+    for seed in (2, 9):
+        graphs[f"slanet_{seed}"] = _slanet_graph(w, seed)
+    x = np.random.default_rng(1).integers(0, 256, (1, 3, 1024, 1024)).astype(np.float32)
+    graphs["wired_table_1024"] = (tied_const_graph(
+        w, {"y": (1, 1024, 1024)}, {"y": wired_class_map().astype(np.float32)}, x.shape), [x])
+    return graphs
+
+
+def encode_array(a) -> dict:
+    """An output for the golden: dtype, shape, and the values (the sha256
+    of the bytes for an array of more than 4096 values)."""
+    import hashlib
+
+    import numpy as np
+
+    a = np.ascontiguousarray(a)
+    out = {"dtype": str(a.dtype), "shape": list(a.shape)}
+    if a.size > 4096:
+        out["sha256"] = hashlib.sha256(a.tobytes()).hexdigest()
+    else:
+        out["data"] = a.tolist()
+    return out
+
+
+def decode_array(d: dict):
+    """The array behind an encoded output that keeps its values."""
+    import numpy as np
+
+    return np.asarray(d["data"], d["dtype"]).reshape(d["shape"])
+
+
+def check_graph_outputs(name: str, got: list, want: list) -> None:
+    """Graph outputs against the golden's: dtypes and shapes equal,
+    integer and bool outputs equal, floats within GRAPH_ATOL/RTOL, the
+    RT-DETR dets' labels equal and boxes within GRAPH_DET_TOL px; an
+    output kept as a sha256 equal byte for byte."""
+    import hashlib
+
+    import numpy as np
+
+    check(len(got) == len(want), f"onnx {name}: {len(got)} outputs, golden {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = np.ascontiguousarray(g)
+        check(str(g.dtype) == w["dtype"] and list(g.shape) == w["shape"],
+              f"onnx {name} output {i}: {g.dtype} {list(g.shape)}, golden {w['dtype']} {w['shape']}")
+        if "sha256" in w:
+            check(hashlib.sha256(g.tobytes()).hexdigest() == w["sha256"],
+                  f"onnx {name} output {i}: differs from the golden's")
+            continue
+        ref = decode_array(w)
+        if np.issubdtype(ref.dtype, np.floating):
+            check(bool(np.allclose(g, ref, atol=GRAPH_ATOL, rtol=GRAPH_RTOL)),
+                  f"onnx {name} output {i}: {float(np.abs(g - ref).max()):.3g} off the golden")
+        else:
+            check(np.array_equal(g, ref), f"onnx {name} output {i}: differs from the golden's")
+        if name.startswith("rtdetr") and i == 0:
+            check(np.array_equal(g[:, 0], ref[:, 0]), f"onnx {name}: det labels differ")
+            err = float(np.abs(g[:, 2:] - ref[:, 2:]).max())
+            check(err <= GRAPH_DET_TOL, f"onnx {name}: a det box is {err:.3g} px off")
+
+
+def onnx_layout_dets() -> list[dict]:
+    """The layout fixture's golden (fp32) layout dets of ONNX_LAYOUT_PAGE."""
+    golden = json.loads(asset("layout_smoke_golden.json").read_text())
+    return [d for d in golden["fp32"]["model_info"][ONNX_LAYOUT_PAGE]["layout_dets"]
+            if "original_label" in d]
+
+
+def write_onnx_layout(models_dir: Path) -> None:
+    """A pp_doclayoutv3.onnx with the V3 contract (image and scale_factor
+    in; boxes (N, 6) [class, score, x0, y0, x1, y1] in page pixels,
+    box_nums and masks out) emitting onnx_layout_dets(), tied to the
+    input as tests/test_registry_assets.py's layout contract is."""
+    import numpy as np
+
+    from rapiddoc_tpu_torch.models.layout.onnx_engine import PP_DOCLAYOUT_V2_LABELS
+    from rapiddoc_tpu_torch.tools import onnx_writer as w
+
+    dets = onnx_layout_dets()
+    boxes = np.asarray([[PP_DOCLAYOUT_V2_LABELS.index(d["original_label"]), d["score"],
+                         d["poly"][0], d["poly"][1], d["poly"][4], d["poly"][5]]
+                        for d in dets], np.float32)
+    n = len(dets)
+    nodes = [
+        w.encode_node("ReduceMean", ["image"], ["m"], {"keepdims": 0}),
+        w.encode_node("Mul", ["m", "zero"], ["z"]),
+        w.encode_node("Add", ["boxes_c", "z"], ["boxes"]),
+        w.encode_node("Add", ["masks_c", "z"], ["masks"]),
+        w.encode_node("Identity", ["nums_c"], ["box_nums"]),
+    ]
+    data = w.build_model(
+        nodes, {"image": (1, 3, 800, 800), "scale_factor": (1, 2)},
+        {"boxes": (n, 6), "box_nums": (1,), "masks": (n, 50, 50)},
+        {"boxes_c": boxes, "masks_c": np.zeros((n, 50, 50), np.float32),
+         "nums_c": np.asarray([n], np.int32), "zero": np.asarray(0.0, np.float32)})
+    (Path(models_dir) / "pp_doclayoutv3.onnx").write_bytes(data)
+
+
+def onnx_layout_pdf() -> bytes:
+    """The layout fixture's ONNX_LAYOUT_PAGE as a one-page PDF."""
+    from rapiddoc_tpu_torch.bench import build_pdf, page_images
+
+    return build_pdf(page_images(asset("layout_smoke_doc.pdf").read_bytes())
+                     [ONNX_LAYOUT_PAGE:ONNX_LAYOUT_PAGE + 1], 1)
+
+
+def phase_onnx(card: str) -> dict:
+    """The ONNX interpreter on the card, fp32 with TF32 off: Magika over
+    magika_corpus() (labels equal to the JAX package's golden, scores
+    within MAGIKA_SCORE_TOL, ms a call at batch 1); the contract graphs
+    written by the port's writer (outputs held to the golden by
+    check_graph_outputs, ms each) and the wired-table contract through
+    OnnxWiredTableStructure (cells and grid equal); RapidDoc with a
+    pp_doclayoutv3.onnx in a temporary models dir on the layout fixture's
+    page (Markdown and content list equal to the JAX package's with the
+    same models dir, K1's launches held to the rec dispatches); RapidDoc
+    on suffix-less bytes (the sniff label and the Markdown equal to the
+    JAX package's). Returns K1's launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from rapiddoc_tpu_torch import RapidDoc
+    from rapiddoc_tpu_torch.engine.onnx_torch import OnnxTorchFunction
+    from rapiddoc_tpu_torch.models.table.onnx_models import OnnxWiredTableStructure
+    from rapiddoc_tpu_torch.utils import sniff
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    golden = json.loads(asset("onnx_smoke_golden.json").read_text())
+    parses = json.loads(asset("onnx_parse_golden.json").read_text())
+    clean_env()
+
+    corpus = magika_corpus()
+    check(set(corpus) == set(golden["magika"]), "onnx: the Magika corpus differs from the golden's")
+    worst = 0.0
+    for name, data in corpus.items():
+        label, score = sniff.magika_classify(data, device="cuda")
+        want = golden["magika"][name]
+        check(label == want["label"], f"onnx: Magika calls {name} {label}, golden {want['label']}")
+        worst = max(worst, abs(score - want["score"]))
+    check(worst <= MAGIKA_SCORE_TOL, f"onnx: a Magika score is {worst:.3g} off the golden's")
+    fn = sniff.load_magika("cuda")[0]
+    feats = sniff.magika_features(corpus["python"])
+    magika_ms = cuda_ms(lambda: fn(feats), iters=ONNX_TIMED_RUNS)
+    emit({"phase": "onnx", "path": "magika", "card": card, "inputs": len(corpus),
+          "labels_equal": True, "max_score_err": worst, "ms_per_call_batch1": magika_ms})
+
+    graph_ms = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (data, feeds) in onnx_contract_graphs().items():
+            path = Path(tmp) / f"{name}.onnx"
+            path.write_bytes(data)
+            gfn = OnnxTorchFunction.from_file(path, device="cuda")
+            check_graph_outputs(name, gfn(*feeds), golden["graphs"][name])
+            graph_ms[name] = cuda_ms(lambda: gfn(*feeds), iters=ONNX_TIMED_RUNS)
+        wired = OnnxWiredTableStructure(Path(tmp) / "wired_table_1024.onnx", device="cuda")
+        page = np.full((512, 512, 3), 255, np.uint8)
+        cells, grid = wired.batch([page])[0]
+        check(json.loads(json.dumps([cells, grid])) == golden["wired_structure"],
+              "onnx: the wired-table contract's cells differ from the golden's")
+        wired_ms = cuda_ms(lambda: wired.batch([page]), iters=3, warmup=1)
+    emit({"phase": "onnx", "path": "graphs", "card": card, "outputs_equal": True,
+          "ms": graph_ms, "wired_structure_ms": wired_ms, "wired_cells": len(cells)})
+
+    with tempfile.TemporaryDirectory() as models:
+        write_onnx_layout(Path(models))
+        clean_env(RAPIDDOC_MODELS_DIR=models, RAPIDDOC_DISABLE_FORMULA="1",
+                  RAPIDDOC_DISABLE_TABLE="1")
+        rapid = RapidDoc(device="cuda", dtype=torch.float32)
+        pdf = onnx_layout_pdf()
+        rapid(pdf, parse_method="ocr")  # warm-up
+        analyzer = rapid._stack().analyzer
+        check(type(analyzer.layout_model).__name__ == "OnnxLayoutDetector",
+              "onnx: the models dir's pp_doclayoutv3.onnx did not build the ONNX layout")
+        torch.cuda.synchronize()
+        with LaunchCount(analyzer.ocr.recognizer) as counted:
+            t0 = time.perf_counter()
+            out = rapid(pdf, parse_method="ocr")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = counted.check("onnx layout")
+        want = parses["onnx_layout"]
+        check(out.markdown == want["markdown"], "onnx: the ONNX-layout Markdown differs from the golden's")
+        check(out.content_list_json == want["content_list"],
+              "onnx: the ONNX-layout content list differs from the golden's")
+    emit({"phase": "onnx", "path": "onnx_layout", "dtype": "fp32", "card": card,
+          "dets": len(onnx_layout_dets()), "parse_s": wall, "launches": counts,
+          "markdown_equal": True, "content_list_equal": True})
+
+    clean_env(RAPIDDOC_DISABLE_LAYOUT="1", RAPIDDOC_DISABLE_FORMULA="1", RAPIDDOC_DISABLE_TABLE="1")
+    data = suffixless_bytes()
+    want = parses["suffixless"]
+    label = sniff.guess_suffix_by_bytes(data, device="cuda")
+    check(label == want["suffix"], f"onnx: the suffix-less bytes sniff as {label!r}, "
+                                   f"golden {want['suffix']!r}")
+    out = RapidDoc(device="cuda", dtype=torch.float32)(data, parse_method="ocr")
+    check(out.markdown == want["markdown"], "onnx: the suffix-less parse's Markdown differs")
+    emit({"phase": "onnx", "path": "suffixless", "dtype": "fp32", "card": card,
+          "prefix": SUFFIXLESS_PREFIX.decode("latin-1"), "suffix": label, "markdown_equal": True})
+    clean_env()
+    return counts["ctc_head"]
+
+
 def main() -> int:
     try:
         import torch
@@ -2703,6 +3252,7 @@ def main() -> int:
         image_counts = timed("image_inputs", phase_image_inputs, card)
         vector_counts = timed("vector", phase_vector, card)
         text_counts = timed("text", phase_text, card)
+        onnx_launches = timed("onnx", phase_onnx, card)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2731,7 +3281,7 @@ def main() -> int:
                              **table_ocr, **orientation, **seal_counts,
                              "image_inputs": image_counts["ctc_head"],
                              "vector": vector_counts["ctc_head"],
-                             "text": text_counts["ctc_head"]},
+                             "text": text_counts["ctc_head"], "onnx": onnx_launches},
         "max_abs_err": k1["max_abs_err"],
         "max_rel_err": k1["max_rel_err"], "matches_plain": True,
         "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],

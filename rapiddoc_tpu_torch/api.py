@@ -31,10 +31,15 @@ pages across documents, with a ``DeferredAR`` across its chunks.
 ``image_config={"extract_original_image": True}`` keeps an embedded
 image's own pixels for an image span that matches it.
 
-Office, URL and sniffed inputs, and the image formats and PIL images the
-port does not decode, raise NotImplementedError naming their ROADMAP
-items. A page whose page object is broken renders as a blank page, as in
-the JAX package; anything the port's renderer cannot draw raises, and so
+Bytes without a suffix that do not start with ``%PDF`` and are no
+PNG/JPEG/GIF/WEBP/Office file are sniffed by Magika
+(``utils/sniff.guess_suffix_by_bytes``) on the facade's device and routed
+as the JAX package routes them: an image through the PDF writer,
+anything but Office parsed as a PDF. Office and URL inputs, and the
+image formats and PIL images the port does not decode, raise
+NotImplementedError naming their ROADMAP items. A page whose page object
+is broken renders as a blank page, as in the JAX package; anything the
+port's renderer cannot draw raises, and so
 does an embedded image that the port cannot decode for
 ``extract_original_image`` (the JAX package logs it and uses the crop).
 """
@@ -72,6 +77,7 @@ from .pipeline.scheduler import DeferredAR
 from .types import MakeMode
 from .utils.checkpoint import resolve_checkpoint
 from .utils.logging import get_logger
+from .utils.sniff import guess_suffix_by_bytes
 from .utils.trace import GLOBAL_TRACER, stage_timer
 from .utils.unported import not_ported
 
@@ -573,7 +579,14 @@ class RapidDoc:
             return images_to_pdf([data], dpi=get_pdf_render_dpi()), stem
         known = image_suffixes + office_suffixes + old_office_suffixes + (".pdf",)
         if suffix not in known and data[:4] != b"%PDF":
-            raise not_ported("content sniffing of inputs without a suffix", "sniff")
+            # extensionless input: content-based id (Magika through the ONNX
+            # interpreter on the facade's device), routed as the JAX package
+            # routes it; anything else is parsed as a PDF
+            guessed = guess_suffix_by_bytes(data, device=self.device)
+            if guessed in ("docx", "pptx", "xlsx", "doc", "ppt", "xls"):
+                raise not_ported("Office documents", "host_families")
+            if guessed in ("png", "jpg", "gif", "webp", "bmp", "tif"):
+                return images_to_pdf([data], dpi=get_pdf_render_dpi()), stem
         return data, stem
 
 

@@ -12,9 +12,10 @@ postprocess (per-class thresholds, NMS with separate same-class and
 cross-class IoU, masks to polygons) is the JAX package's, with cv2's
 contour functions replaced by ``utils/contours.py``.
 
-A published ``.onnx`` layout checkpoint raises NotImplementedError: the
-JAX package runs those through its ONNX interpreter (ROADMAP Queue 1
-item 13).
+A published ``.onnx`` layout checkpoint in the models dir comes first,
+as in the JAX package: ``build`` returns an ``OnnxLayoutDetector``
+(``onnx_engine.py``, the ONNX interpreter on the same device, in
+float32) with the JAX package's thresholds.
 """
 from __future__ import annotations
 
@@ -33,7 +34,6 @@ from ...types import CategoryId
 from ...utils import boxes as B
 from ...utils import contours
 from ...utils.logging import get_logger
-from ...utils.unported import not_ported
 from ..ocr.pre_post import pack_nibbles, resize_cubic, to_luma
 from ..weights import load_flax_into, load_npz
 from .rtdetr import RTDETR
@@ -82,14 +82,6 @@ V2_CATEGORY_MAP = {
     "vertical_text": CategoryId.Text,
     "vision_footnote": CategoryId.Text,
 }
-
-# the published layout checkpoints the JAX package runs through its ONNX
-# interpreter (rapiddoc_tpu/models/layout/onnx_engine.py MODEL_SPECS)
-ONNX_STEMS = (
-    "pp_doclayout_s", "pp_doclayout_m", "pp_doclayout_l", "pp_doclayout_plus_l",
-    "pp_doclayoutv2", "pp_doclayoutv3", "doclayout_docstructbench",
-)
-
 
 def class_nms(
     boxes: np.ndarray, scores: np.ndarray, labels: np.ndarray,
@@ -210,18 +202,34 @@ class LayoutDetector:
 
     @classmethod
     def build(cls, configs: dict, device=None, dtype: torch.dtype | None = None):
-        """The JAX package's ``LayoutDetector.build``: a published
-        ``layout_doclayout_v3.npz`` under the models dir, else the demo
+        """The JAX package's ``LayoutDetector.build``: a published ``.onnx``
+        (``MODEL_SPECS``' stems, ``model_type``'s first) in the models dir,
+        else a published ``layout_doclayout_v3.npz`` there, else the demo
         checkpoint when ``RAPIDDOC_DEMO_LAYOUT`` (or
         ``configs["demo_layout"]``) asks for it, else FileNotFoundError
         (the caller's structural fallback layout) unless
         ``allow_random_init``."""
         models_dir = get_models_dir()
+        # published .onnx checkpoint -> the ONNX interpreter's detector
+        from .onnx_engine import LOW_CONF_MODELS, MODEL_SPECS, OnnxLayoutConfig, OnnxLayoutDetector
+
         model_type = configs.get("model_type", "pp_doclayoutv3")
+        # reference callers pass a ModelType enum; accept its .value
         model_type = getattr(model_type, "value", model_type)
-        for stem in ([model_type] if model_type in ONNX_STEMS else []) + list(ONNX_STEMS):
-            if (models_dir / f"{stem}.onnx").is_file():
-                raise not_ported(f"the published ONNX layout checkpoint {stem}.onnx", "sniff")
+        for stem in ([model_type] if model_type in MODEL_SPECS else []) + list(MODEL_SPECS):
+            onnx_path = models_dir / f"{stem}.onnx"
+            if onnx_path.is_file():
+                logger.info("layout: published ONNX checkpoint %s", onnx_path)
+                return OnnxLayoutDetector(onnx_path, OnnxLayoutConfig(
+                    model_type=stem,
+                    # S / docstructbench under-recall at 0.5; the reference
+                    # auto-lowers (rapid_layout.py:30-35)
+                    conf_threshold=configs.get(
+                        "conf_thresh", 0.2 if stem in LOW_CONF_MODELS else 0.5),
+                    class_thresholds=configs.get("class_thresholds"),
+                    markdown_ignore_labels=frozenset(
+                        configs.get("markdown_ignore_labels", DEFAULT_ABANDON_LABELS)),
+                ), device=device)
         flat = None
         published = models_dir / "layout_doclayout_v3.npz"
         if published.is_file():

@@ -8,8 +8,13 @@ for bit), shipped as uint8 and scaled by 1/255 and rounded to bf16 on
 the device in every dtype, as the JAX package's jitted function does;
 the softmax runs in fp32. The batch is padded to a power of two.
 
-A published ``rapid_orientation.onnx`` needs the ONNX interpreter and
-raises NotImplementedError (ROADMAP Queue 1 item 13).
+``OnnxOrientationClassifier`` (the JAX package's ``:76-110``) runs a
+published ``rapid_orientation.onnx`` through the port's ONNX interpreter
+on the same device: the short side resized to 256 with ``resize_linear``
+(INTER_LINEAR), a 224 centre crop, ImageNet normalisation on the host in
+float32 as the JAX package does it, and the angle labels from the
+model's metadata. ``build_orientation_classifier`` takes it where the
+JAX package does: no flax leaves, and the file in the models dir.
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ from torch import nn
 
 from ...engine.buckets import BucketSpec
 from ...engine.session import TorchSession
-from ...utils.unported import not_ported
+from ...engine.onnx_torch import OnnxTorchFunction
+from ...tools.onnx_reader import read_onnx_metadata
 from ..common.layers import ConvBNAct
 from ..ocr.pre_post import resize_linear
 from ..weights import load_flax_into, random_init
@@ -78,16 +84,53 @@ class OrientationClassifier:
         return [ANGLES[int(p.argmax())] for p in probs]
 
 
+class OnnxOrientationClassifier:
+    """Published rapid_orientation.onnx via the ONNX interpreter on
+    ``device`` (reference: rapid_orientation/main — resize_short 256,
+    center crop 224, ImageNet norm; label order from the model's
+    metadata)."""
+
+    def __init__(self, path, *, device=None):
+        self.fn = OnnxTorchFunction.from_file(path, device=device)
+        meta = read_onnx_metadata(path)
+        labels = (meta.get("character") or "").splitlines()
+        self.angles = [
+            int(x) for x in labels if x.strip().isdigit()
+        ] or list(ANGLES)
+
+    @staticmethod
+    def _pre(img: np.ndarray) -> np.ndarray:
+        h, w = img.shape[:2]
+        p = 256.0 / min(h, w)
+        img = resize_linear(img, int(round(w * p)), int(round(h * p)))
+        h, w = img.shape[:2]
+        y0, x0 = (h - 224) // 2, (w - 224) // 2
+        x = img[y0 : y0 + 224, x0 : x0 + 224].astype(np.float32) / 255.0
+        x = (x - np.array([0.485, 0.456, 0.406], np.float32)) / np.array(
+            [0.229, 0.224, 0.225], np.float32
+        )
+        return x.transpose(2, 0, 1)
+
+    def __call__(self, imgs: list[np.ndarray]) -> list[int]:
+        if not imgs:
+            return []
+        x = np.stack([self._pre(im) for im in imgs]).astype(np.float32)
+        out = np.asarray(self.fn(x)[0])
+        return [self.angles[int(r.argmax())] for r in out]
+
+
 def build_orientation_classifier(models_dir: Path, flat: dict | None = None, *,
                                  device=None, dtype: torch.dtype | None = None
-                                 ) -> OrientationClassifier:
+                                 ) -> OrientationClassifier | OnnxOrientationClassifier:
     """The classifier from flax leaves ``flat``; without them, a published
-    ``rapid_orientation.onnx`` in ``models_dir`` raises (ONNX is not
-    ported), else the net is random-init from seed 0."""
+    ``rapid_orientation.onnx`` in ``models_dir`` through the ONNX
+    interpreter (in float32 whatever ``dtype``, as the JAX package runs
+    it), else the net random-init from seed 0."""
+    onnx_path = Path(models_dir) / "rapid_orientation.onnx"
+    if flat is None and onnx_path.is_file():
+        return OnnxOrientationClassifier(onnx_path, device=device)
     model = OrientationNet()
     if flat is None:
-        if (Path(models_dir) / "rapid_orientation.onnx").is_file():
-            raise not_ported("the published rapid_orientation.onnx", "sniff")
         random_init(model, np.random.default_rng(0))
     else:
         load_flax_into(model, flat)

@@ -24,11 +24,13 @@ random-init (from ``HEAD_SEED``) at its width.
 ``build_layout_model``, ``build_formula_model``, ``build_table_model``,
 ``build_orientation_model`` and ``build_analyzer`` are the JAX
 package's (``registry.py:161-260``): the layout detector
-(``LayoutDetector.build``: a published npz, or the demo checkpoint under
-``RAPIDDOC_DEMO_LAYOUT``) or None where its checkpoint is missing, the
-formula recognizer, the table recognizer (``TableRecognizer.build``: the
-demo checkpoints, no OCR system inside tables, as in the JAX package),
-the orientation classifier under ``USE_DOC_ORIENTATION_CLASSIFY``, the
+(``LayoutDetector.build``: a published ``.onnx`` or npz, or the demo
+checkpoint under ``RAPIDDOC_DEMO_LAYOUT``) or None where its checkpoint
+is missing, the formula recognizer, the table recognizer
+(``TableRecognizer.build``: the demo checkpoints, ONNX models only for a
+model still missing, no OCR system inside tables, as in the JAX
+package), the orientation classifier under
+``USE_DOC_ORIENTATION_CLASSIFY``, the
 OCR system and the document analyzer around them. Checkboxes, custom
 models and the layout knob the port runs only at its default raise
 NotImplementedError naming their ROADMAP item.
@@ -52,7 +54,8 @@ from .layout.engine import LayoutDetector
 from .ocr.det import DBNet
 from .ocr.engine import TextDetector, TextRecognizer, TextSystem
 from .ocr.rec import SVTRRec
-from .orientation.engine import OrientationClassifier, build_orientation_classifier
+from .orientation.engine import (OnnxOrientationClassifier, OrientationClassifier,
+                                 build_orientation_classifier)
 from .table.engine import TableRecognizer
 from .weights import load_flax_into, load_npz
 
@@ -218,10 +221,11 @@ def build_table_model(configs: dict | None = None, device=None,
 
 
 def build_orientation_model(device=None, dtype: torch.dtype | None = None
-                            ) -> OrientationClassifier | None:
+                            ) -> OrientationClassifier | OnnxOrientationClassifier | None:
     """The orientation classifier under USE_DOC_ORIENTATION_CLASSIFY (the
     JAX package's gate), else None: ``orientation_cls.npz`` from the
-    models dir, else the in-repo ``orientation_demo.npz``."""
+    models dir, else the in-repo ``orientation_demo.npz``, else a
+    published ``rapid_orientation.onnx`` in the models dir."""
     if not (env_bool("USE_DOC_ORIENTATION_CLASSIFY") or os.environ.get(
         "USE_DOC_ORIENTATION_CLASSIFY", ""
     ).lower() in ("1", "true", "yes")):

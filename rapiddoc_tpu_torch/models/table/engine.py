@@ -26,8 +26,9 @@ taken).
 The JAX package's main path builds the recognizer without an OCR system
 (``TableRecognizer.build`` passes none), so every cell holds only
 injected formulas and image placeholders; so does the port's. Published
-table checkpoints raise NotImplementedError (ROADMAP Queue 1 item 17),
-as do the published ONNX models (item 13).
+table npz checkpoints raise NotImplementedError (ROADMAP Queue 1 item
+17); the published ONNX models (``onnx_models.py``) are built where the
+JAX package builds them, for a model no checkpoint provides.
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ from ...utils.unported import not_ported
 from ..weights import load_flax_into, load_npz, nest_models, random_init
 from .cls import TableClassifier, TableClsNet, heuristic_table_kind
 from .matcher import build_html_from_grid, html_from_structure_tokens, match_ocr_to_cells
+from .onnx_models import OnnxTableClassifier, OnnxWiredTableStructure, OnnxWirelessStructure
 from .select import detect_table_rotations, normalize_cell_text, select_best_table_html
 from .slanet import SLANetConfig, SLANetModel, SLANetStructure, SLANetVocab
 from .unet import UNet, WiredTableStructure
@@ -136,34 +138,57 @@ class TableRecognizer:
     @classmethod
     def build(cls, configs: dict, device=None,
               dtype: torch.dtype | None = None) -> "TableRecognizer":
-        """The JAX package's ``TableRecognizer.build`` with the in-repo
-        demo checkpoints (``table_{cls,unet,slanet,unitable}_demo.npz``,
-        read in place) and no OCR system. Published checkpoints in the
-        models dir raise NotImplementedError."""
+        """The JAX package's ``TableRecognizer.build``, in its order: the
+        in-repo demo checkpoints (``table_{cls,unet,slanet,unitable}_demo.npz``,
+        read in place) where no published npz is (published npz files
+        raise NotImplementedError, ROADMAP Queue 1 item 17), then a
+        published ONNX model (``onnx_models.py``, the ONNX interpreter on
+        the same device, in float32) only for a model that is still
+        missing; no OCR system. With the demo checkpoints in the
+        repository, ONNX table models in the models dir change nothing,
+        as in the JAX package."""
         models_dir = get_models_dir()
         for name in PUBLISHED_NPZ + ("unitable_vocab.json",):
             if (models_dir / name).is_file():
                 raise not_ported(f"the published table checkpoint {name}", "checkpoints")
-        for name in PUBLISHED_ONNX:
-            if (models_dir / name).is_file():
-                raise not_ported(f"the published ONNX table model {name}", "sniff")
         strategy = configs.get("strategy", "unet_slanet_plus")
         wired_kind, wireless_kind = STRATEGIES.get(strategy, (None, None))
+        # in-repo demo checkpoints trained on synthetic tables
+        demos = {key: DEMO_ASSETS_DIR / f"table_{key}_demo.npz"
+                 for key in ("unet", "slanet", "cls", "unitable")}
+        present = {key for key, path in demos.items() if path.is_file()}
         variables = {
-            key: load_npz(DEMO_ASSETS_DIR / f"table_{key}_demo.npz")
-            for key in ("cls", wired_kind, wireless_kind) if key is not None
+            key: load_npz(demos[key])
+            for key in ("cls", wired_kind, wireless_kind) if key in present
         }
         logger.info("table: demo synthetic-trained checkpoints %s", sorted(variables))
+        unet_onnx, paddle_cls, q_cls, slanet_onnx = (models_dir / n for n in PUBLISHED_ONNX)
+        has_onnx = any(p.is_file() for p in (unet_onnx, paddle_cls, q_cls, slanet_onnx))
+        if not present and not has_onnx and not configs.get("allow_random_init", False):
+            raise FileNotFoundError("table checkpoints missing")
         config = TableConfig(
             strategy=strategy,
-            use_cls_model=True,
+            use_cls_model="cls" in present,
             wireless_max_len=configs.get("wireless_max_len", 256),
             use_img2table=configs.get("use_img2table", True),
             use_compare_table=configs.get("use_compare_table", False),
             detect_rotation=configs.get("detect_rotation", True),
             enable_blank_cell_rec=configs.get("enable_blank_cell_rec", False),
         )
-        return cls(config, variables=variables, device=device, dtype=dtype)
+        rec = cls(config, variables=variables, device=device, dtype=dtype)
+        # published ONNX models only where a model is still missing
+        if "unet" not in present and unet_onnx.is_file():
+            logger.info("table: published unet.onnx via onnx_torch")
+            rec.wired = OnnxWiredTableStructure(unet_onnx, device=device)
+        if "slanet" not in present and slanet_onnx.is_file() and wireless_kind == "slanet":
+            logger.info("table: published slanet-plus.onnx via onnx_torch")
+            rec.wireless = OnnxWirelessStructure(slanet_onnx, device=device)
+        if "cls" not in present and (paddle_cls.is_file() or q_cls.is_file()):
+            logger.info("table: published cls .onnx via onnx_torch")
+            rec.classifier = OnnxTableClassifier(
+                paddle_cls if paddle_cls.is_file() else None,
+                q_cls if q_cls.is_file() else None, device=device)
+        return rec
 
     def kinds(self, crops: list[np.ndarray]) -> list[str]:
         """'wired' or 'wireless' per crop, as ``batch_predict`` routes it."""

@@ -12,7 +12,6 @@ from __future__ import annotations
 ITEMS = {
     "pdfio": (12, "12d, the other codecs, colour spaces, patterns and shadings"),
     "glyphs": (12, "12c's rest, bitmap-strike faces and complex shaping"),
-    "sniff": (13, "ONNX interpreter and sniffing"),
     "host_families": (15, "the host-only families"),
     "checkpoints": (17, "checkpoint converters and published checkpoints"),
 }

@@ -49,6 +49,11 @@ MAIN_PATH_MODULES = (
     "rapiddoc_tpu_torch.models.table.engine", "rapiddoc_tpu_torch.models.table.unet",
     "rapiddoc_tpu_torch.models.table.slanet", "rapiddoc_tpu_torch.models.table.unitable",
     "rapiddoc_tpu_torch.models.table.cls", "rapiddoc_tpu_torch.utils.morph",
+    # the ONNX interpreter and its users
+    "rapiddoc_tpu_torch.engine.onnx_torch", "rapiddoc_tpu_torch.tools.onnx_reader",
+    "rapiddoc_tpu_torch.tools.onnx_writer", "rapiddoc_tpu_torch.utils.sniff",
+    "rapiddoc_tpu_torch.models.layout.onnx_engine",
+    "rapiddoc_tpu_torch.models.table.onnx_models",
 )
 
 
@@ -84,6 +89,9 @@ def test_port_imports_and_runs_with_banned_modules_blocked():
             pdf = build_pdf(page_images(f.read())[:1], 1)
         md = RapidDoc(device="cpu", dtype=torch.float32)(pdf, parse_method="ocr").markdown
         assert md.count(chr(10)) > 10, md
+        # Magika through the ONNX interpreter
+        from rapiddoc_tpu_torch.utils.sniff import guess_suffix_by_bytes
+        assert guess_suffix_by_bytes(b"  " + pdf, device="cpu") == "pdf"
         loaded = sorted(k for k in sys.modules if k.split(".")[0] in {BANNED!r}
                         and sys.modules[k] is not None)
         assert not loaded, loaded
