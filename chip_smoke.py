@@ -171,7 +171,8 @@ BF16_MAX_UNMATCHED, BF16_MIN_EXACT, BF16_MAX_CER = 4, 0.60, 0.05
 # the band, and full fp32 far below it.
 BF16_GAP_BAND = (0.6, 1.5)
 KERNELS = ("ctc_head", "quant_head")
-BUILDS = KERNELS + ("jpeg_entropy",)  # jpeg_entropy: host code, not a kernel
+# jpeg_entropy and bilevel: host code, not kernels
+BUILDS = KERNELS + ("jpeg_entropy", "bilevel")
 # The pipeline's bf16 Markdown against the JAX package's bf16 golden: the
 # ocr phase's limits (line share and CER). The port's bf16 on the CPU
 # reads 56/74 lines equal (0.757), CER 0.0083, and the JAX package's own
@@ -3106,6 +3107,165 @@ def onnx_layout_pdf() -> bytes:
                      [ONNX_LAYOUT_PAGE:ONNX_LAYOUT_PAGE + 1], 1)
 
 
+# The codec fixture's bf16 "ocr" parse against the JAX package's bf16
+# golden (tests/test_torch_codecs.py holds the generator of the fixture
+# and golden). The port's bf16 on the CPU: 52/67 lines equal (0.776), CER
+# 0.0131; the JAX package's own fp32 against its bf16: 57/67 (0.851), CER
+# 0.0206 (python tests/test_torch_codecs.py --compare). The margin for the
+# card's summation order: 0.126 of lines (8 lines) and 0.037 of CER.
+CODECS_BF16 = {"min_exact_share": 0.65, "max_cer": 0.05}
+CODEC_BAND_ROWS = 400  # rows of the pages the plain bilevel decoders run
+
+
+def phase_codecs(card: str) -> int:
+    """Scanned and born-digital codecs (tests/test_torch_codecs.py holds
+    the generator of the fixture and golden): the compiled JBIG2 and T.6
+    loops (csrc/bilevel.cu) against the plain ones on the first
+    CODEC_BAND_ROWS rows of the 300 dpi pages and of the fixture's
+    text-region page (its symbol dictionary and text region whole: the
+    integer and symbol-ID loops), and the compiled
+    progressive and CMYK entropy decode against the plain one on the
+    fixture's JPEGs; the full 300 dpi pages decoded compiled with their
+    sha256 equal to the JAX package's, ms per page of each decoder on the
+    card's host; the fixture's pages rendered at 200 and 72 dpi equal to
+    the golden's; RapidDoc(device="cuda") in fp32 (TF32 off), "ocr" on the
+    fixture and "auto" on its vector page, equal to the golden; the bf16
+    "ocr" parse timed, K1's launches held to the rec dispatches, its
+    Markdown within CODECS_BF16. Returns K1's launches."""
+    import numpy as np
+    import torch
+
+    from rapiddoc_tpu_torch import RapidDoc
+    from rapiddoc_tpu_torch.pdfio import ccitt, jbig2, jpeg, open_pdf, render_page_full
+
+    t_phase = time.perf_counter()
+    golden = json.loads(asset("codec_smoke_golden.json").read_text())
+    pdf = asset("codec_smoke_doc.pdf").read_bytes()
+    vector = asset("codec_smoke_vector.pdf").read_bytes()
+    with np.load(asset("codec_smoke_streams.npz")) as z:
+        generic, g4 = z["jbig2_generic_300"].tobytes(), z["g4_300"].tobytes()
+
+    # the 300 dpi pages: compiled in full, plain on a band
+    t0 = time.perf_counter()
+    bitmap = jbig2.decode(generic, None, 2550, 3300, compiled=True)
+    jbig2_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    band = jbig2.decode(generic, None, 2550, 3300, compiled=False, max_rows=CODEC_BAND_ROWS)
+    jbig2_band_plain_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(band, bitmap[:CODEC_BAND_ROWS]),
+          "codecs: the compiled JBIG2 generic region differs from the plain one")
+    check(sha256(((1 - bitmap) * 255).astype(np.uint8)) == golden["bitmaps"]["jbig2_generic_300"],
+          "codecs: the 300 dpi JBIG2 page differs from the JAX package's")
+    t0 = time.perf_counter()
+    bits, rows = ccitt.decode_bits_compiled(g4, 2550, 3300, -1)
+    g4_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    band, _ = ccitt.decode_bits_plain(g4, 2550, CODEC_BAND_ROWS, -1)
+    g4_band_plain_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(band, bits[:CODEC_BAND_ROWS]),
+          "codecs: the compiled T.6 decoder differs from the plain one")
+    check(rows == 3300 and sha256(ccitt.to_l(bits, False)) == golden["bitmaps"]["g4_300"],
+          "codecs: the 300 dpi G4 page differs from the JAX package's")
+
+    # the fixture's streams: its JBIG2 text page and its two JPEGs
+    doc = open_pdf(pdf)
+    jpegs, text_pages = {}, []
+    for i in range(len(doc)):
+        page = doc.get_page(i)
+        xobjs = doc.resolve(page.resources.get("XObject")) or {}
+        for name, ref in xobjs.items():
+            st = doc.resolve(ref)
+            kind = doc.resolve(st.dict.get("Filter"))
+            if kind == "DCTDecode":
+                jpegs[f"page{i}_{name}"] = doc.stream_bytes(st)
+            elif kind == "JBIG2Decode":
+                parms = doc.resolve(st.dict.get("DecodeParms")) or {}
+                text_pages.append((doc.stream_bytes(st),
+                                   doc.stream_bytes(doc.resolve(parms["JBIG2Globals"])),
+                                   int(st.dict["Width"]), int(st.dict["Height"])))
+    check(len(jpegs) == 2, f"codecs: {len(jpegs)} JPEG streams in the fixture, not 2")
+    check(len(text_pages) == 1, f"codecs: {len(text_pages)} JBIG2 streams in the fixture, not 1")
+    t0 = time.perf_counter()
+    text = jbig2.decode(*text_pages[0], compiled=True)
+    text_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    band = jbig2.decode(*text_pages[0], compiled=False, max_rows=CODEC_BAND_ROWS)
+    text_band_plain_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(band, text[:CODEC_BAND_ROWS]),
+          "codecs: the compiled JBIG2 text-region loops differ from the plain ones")
+    emit({"phase": "codecs", "path": "bilevel", "card": card,
+          "jbig2_generic_compiled_ms_per_page": jbig2_ms, "g4_compiled_ms_per_page": g4_ms,
+          "jbig2_text_200dpi_compiled_ms_per_page": text_ms,
+          "band_rows": CODEC_BAND_ROWS, "jbig2_band_plain_ms": jbig2_band_plain_ms,
+          "g4_band_plain_ms": g4_band_plain_ms, "jbig2_text_band_plain_ms": text_band_plain_ms,
+          "equal_to_plain": True, "equal_to_jax": True})
+
+    # the fixture's JPEGs: progressive 4:2:0 and CMYK, both entropy decoders
+    jpeg_ms = {}
+    for name, data in jpegs.items():
+        stream = jpeg.parse_jpeg(data)
+        t0 = time.perf_counter()
+        plain = jpeg.decode_coefficients_plain(stream)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        compiled = jpeg.decode_coefficients_compiled(stream)
+        check(np.array_equal(plain, compiled),
+              f"codecs: the compiled entropy decode of {name} differs from the plain one")
+        jpeg_ms[name] = {"progressive": stream.progressive, "colorspace": stream.colorspace,
+                         "entropy_plain_ms": plain_ms,
+                         "entropy_compiled_ms": host_ms(
+                             lambda: jpeg.decode_coefficients_compiled(stream), 5),
+                         "decode_ms": host_ms(lambda: jpeg.decode_jpeg(data), 3)}
+    emit({"phase": "codecs", "path": "jpeg", "card": card, "streams": jpeg_ms,
+          "coefficients_equal": True})
+
+    # the rasters
+    render_ms = {}
+    for dpi in ("200", "72"):
+        times = []
+        for path_pdf, key in ((pdf, "pages"), (vector, "vector_pages")):
+            rdoc = open_pdf(path_pdf)
+            for i, want in enumerate(golden[key][dpi]):
+                t0 = time.perf_counter()
+                img = render_page_full(rdoc.get_page(i), dpi=int(dpi), with_text=False)[0]
+                times.append(time.perf_counter() - t0)
+                check(sha256(img) == want, f"codecs: {key} {i} at {dpi} dpi differs from the golden's")
+        render_ms[dpi] = {"mean": 1e3 * sum(times) / len(times), "max": 1e3 * max(times)}
+    emit({"phase": "codecs", "path": "render", "card": card, "pages_equal": True,
+          "render_ms_per_page": render_ms})
+
+    # the parses: fp32 equal to the golden, bf16 timed and counted
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parse_env = {"RAPIDDOC_DISABLE_LAYOUT": "1", "RAPIDDOC_DISABLE_FORMULA": "1",
+                 "RAPIDDOC_DISABLE_TABLE": "1"}
+    clean_env(**parse_env)
+    rapid = RapidDoc(device="cuda", dtype=torch.float32)
+    for data, method, key in ((pdf, "ocr", "ocr_fp32"), (vector, "auto", "auto_fp32")):
+        out = rapid(data, parse_method=method)
+        check(out.markdown == golden[key]["markdown"],
+              f"codecs: the fp32 {method} Markdown differs from the golden's")
+        check(out.content_list_json == golden[key]["content_list"],
+              f"codecs: the fp32 {method} content list differs from the golden's")
+    rapid = RapidDoc(device="cuda")
+    rapid(pdf, parse_method="ocr")  # warm-up
+    torch.cuda.synchronize()
+    with LaunchCount(rapid._stack().analyzer.ocr.recognizer) as counted:
+        t0 = time.perf_counter()
+        out = rapid(pdf, parse_method="ocr")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = counted.check("codecs bf16")
+    vs = compare_markdown(out.markdown, golden["ocr_bf16"]["markdown"])
+    emit({"phase": "codecs", "path": "parse", "card": card, "fp32_equal": True,
+          "bf16_pages_per_s": len(out.model_json) / wall, "launches": counts,
+          "vs_golden_bf16": vs, "phase_seconds": time.perf_counter() - t_phase})
+    check(vs["exact_share"] >= CODECS_BF16["min_exact_share"],
+          f"codecs bf16: only {vs['exact_share']:.3f} of lines equal")
+    check(vs["cer"] <= CODECS_BF16["max_cer"], f"codecs bf16: CER {vs['cer']:.4f}")
+    clean_env()
+    return counts["ctc_head"]
+
+
 def phase_onnx(card: str) -> dict:
     """The ONNX interpreter on the card, fp32 with TF32 off: Magika over
     magika_corpus() (labels equal to the JAX package's golden, scores
@@ -3253,6 +3413,7 @@ def main() -> int:
         vector_counts = timed("vector", phase_vector, card)
         text_counts = timed("text", phase_text, card)
         onnx_launches = timed("onnx", phase_onnx, card)
+        codec_launches = timed("codecs", phase_codecs, card)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3281,7 +3442,8 @@ def main() -> int:
                              **table_ocr, **orientation, **seal_counts,
                              "image_inputs": image_counts["ctc_head"],
                              "vector": vector_counts["ctc_head"],
-                             "text": text_counts["ctc_head"], "onnx": onnx_launches},
+                             "text": text_counts["ctc_head"], "onnx": onnx_launches,
+                             "codecs": codec_launches},
         "max_abs_err": k1["max_abs_err"],
         "max_rel_err": k1["max_rel_err"], "matches_plain": True,
         "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],

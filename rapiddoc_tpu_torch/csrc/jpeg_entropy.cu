@@ -1,4 +1,4 @@
-// Entropy decoder of baseline JPEG scans: host code, no device kernel.
+// Entropy decoder of JPEG scans: host code, no device kernel.
 //
 // The JAX package decodes a PDF's DCTDecode streams with PIL
 // (rapiddoc_tpu/pdfio/images.py), where libjpeg-turbo's Huffman decoder
@@ -10,7 +10,11 @@
 // no PyTorch header) and loaded with ctypes; pdfio/jpeg.py's
 // decode_coefficients_plain is its plain version, bit for bit.
 //
-// One call decodes one scan: Huffman symbols through 16-bit lookahead
+// One call of jpeg_entropy_decode decodes one sequential scan, one of
+// jpeg_progressive_decode one progressive scan (jdphuff.c: DC first and
+// refinement, AC first with end-of-band runs, AC refinement with its
+// correction bits), reading and refining the coefficients in `out`.
+// Both take Huffman symbols through 16-bit lookahead
 // tables built in Python (entry = length << 8 | symbol, 0 for no code),
 // DC prediction, byte unstuffing and restart markers. It writes each
 // block's 64 coefficients in natural order into `out` and returns 0, or
@@ -23,11 +27,14 @@
 
 namespace {
 
-const int kNatural[64] = {
+// jpeg_natural_order with libjpeg's 16 guard entries (a corrupt run past
+// coefficient 63 lands on 63)
+const int kNatural[80] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63,
 };
 
 // MSB-first bit buffer over one restart segment. Past the segment's end
@@ -178,6 +185,147 @@ extern "C" int jpeg_entropy_decode(const uint8_t* data, long long begin, long lo
     }
   }
   // a restart marker after the last MCU means the scan held more MCUs
+  long long at = 0;
+  const int m = next_marker(data, b.pos, end, &at);
+  if (m >= 0xD0 && m <= 0xD7) return -4;
+  return 0;
+}
+
+// n raw bits (n <= 16); -1 when the segment runs out
+inline int raw_bits(Bits& b, int n) {
+  if (b.nbits < 32) b.refill();
+  int r = static_cast<int>(b.acc >> (64 - n));
+  if (!b.consume(n)) return -1;
+  return r;
+}
+
+// One progressive scan (ss, se, ah, al as in its SOS), over the same
+// arguments as jpeg_entropy_decode; an AC scan has one component. The
+// blocks it touches are refined in place in `out`.
+extern "C" int jpeg_progressive_decode(const uint8_t* data, long long begin, long long end,
+                                       const uint16_t* luts, int n_comps, const int* comp,
+                                       int mcus_x, int mcus_y, int restart_interval, int ss,
+                                       int se, int ah, int al, int16_t* out) {
+  if (n_comps < 1 || n_comps > 4) return -5;
+  Bits b{data, begin, end};
+  int pred[4] = {0, 0, 0, 0};
+  unsigned eobrun = 0;
+  const int p1 = 1 << al, m1 = -(1 << al);
+  const long long total = static_cast<long long>(mcus_x) * mcus_y;
+  int restarts = 0;
+  for (long long mcu = 0; mcu < total; ++mcu) {
+    if (restart_interval && mcu && mcu % restart_interval == 0) {
+      long long at = 0;
+      if (next_marker(data, b.pos, end, &at) != 0xD0 + restarts % 8) return -4;
+      ++restarts;
+      b.pos = at;
+      b.restart();
+      pred[0] = pred[1] = pred[2] = pred[3] = 0;
+      eobrun = 0;
+    }
+    const long long my = mcu / mcus_x, mx = mcu % mcus_x;
+    for (int c = 0; c < n_comps; ++c) {
+      const int h = comp[4 * c], v = comp[4 * c + 1], bw = comp[4 * c + 2];
+      const long long off = comp[4 * c + 3];
+      const uint16_t* dc = luts + (2 * c) * 65536LL;
+      const uint16_t* ac = luts + (2 * c + 1) * 65536LL;
+      for (int by = 0; by < v; ++by) {
+        for (int bx = 0; bx < h; ++bx) {
+          int16_t* blk = out + (off + (my * v + by) * bw + mx * h + bx) * 64;
+          if (ss == 0) {
+            if (ah == 0) {  // DC first
+              int s = symbol(b, dc);
+              if (s < 0) return s;
+              if (s) {
+                int r = receive(b, s);
+                if (r == INT32_MIN) return -3;
+                pred[c] += r;
+              }
+              blk[0] = static_cast<int16_t>(pred[c] * p1);
+            } else {  // DC refinement
+              int bit = raw_bits(b, 1);
+              if (bit < 0) return -3;
+              if (bit) blk[0] = static_cast<int16_t>(blk[0] | p1);
+            }
+          } else if (ah == 0) {  // AC first
+            if (eobrun) {
+              --eobrun;
+              continue;
+            }
+            for (int k = ss; k <= se; ++k) {
+              int rs = symbol(b, ac);
+              if (rs < 0) return rs;
+              int r = rs >> 4, s = rs & 15;
+              if (s) {
+                k += r;
+                int val = receive(b, s);
+                if (val == INT32_MIN) return -3;
+                blk[kNatural[k]] = static_cast<int16_t>(static_cast<unsigned>(val) << al);
+              } else if (r == 15) {
+                k += 15;
+              } else {
+                eobrun = 1u << r;
+                if (r) {
+                  int extra = raw_bits(b, r);
+                  if (extra < 0) return -3;
+                  eobrun += extra;
+                }
+                --eobrun;
+                break;
+              }
+            }
+          } else {  // AC refinement
+            int k = ss;
+            if (eobrun == 0) {
+              for (; k <= se; ++k) {
+                int rs = symbol(b, ac);
+                if (rs < 0) return rs;
+                int r = rs >> 4, s = rs & 15;
+                if (s) {
+                  int bit = raw_bits(b, 1);
+                  if (bit < 0) return -3;
+                  s = bit ? p1 : m1;
+                } else if (r != 15) {
+                  eobrun = 1u << r;
+                  if (r) {
+                    int extra = raw_bits(b, r);
+                    if (extra < 0) return -3;
+                    eobrun += extra;
+                  }
+                  break;
+                }
+                do {
+                  int16_t* coef = blk + kNatural[k];
+                  if (*coef != 0) {
+                    int bit = raw_bits(b, 1);
+                    if (bit < 0) return -3;
+                    if (bit && (*coef & p1) == 0)
+                      *coef = static_cast<int16_t>(*coef + (*coef >= 0 ? p1 : m1));
+                  } else if (--r < 0) {
+                    break;
+                  }
+                  ++k;
+                } while (k <= se);
+                if (s) blk[kNatural[k]] = static_cast<int16_t>(s);
+              }
+            }
+            if (eobrun > 0) {
+              for (; k <= se; ++k) {
+                int16_t* coef = blk + kNatural[k];
+                if (*coef != 0) {
+                  int bit = raw_bits(b, 1);
+                  if (bit < 0) return -3;
+                  if (bit && (*coef & p1) == 0)
+                    *coef = static_cast<int16_t>(*coef + (*coef >= 0 ? p1 : m1));
+                }
+              }
+              --eobrun;
+            }
+          }
+        }
+      }
+    }
+  }
   long long at = 0;
   const int m = next_marker(data, b.pos, end, &at);
   if (m >= 0xD0 && m <= 0xD7) return -4;

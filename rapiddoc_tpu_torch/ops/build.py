@@ -98,6 +98,15 @@ def build(name: str) -> Path:
     return out
 
 
+def host_compiled() -> bool:
+    """Whether the host-side decoders (``csrc/bilevel.cu``,
+    ``csrc/jpeg_entropy.cu``) run compiled: where a card is present, with
+    no fallback; else their plain Python versions run."""
+    import torch
+
+    return torch.cuda.is_available()
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build if needed and load ``lib<name>.so`` once per process."""
     with _lock:

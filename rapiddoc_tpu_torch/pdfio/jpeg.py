@@ -1,4 +1,4 @@
-"""Baseline JPEG decoder, equal on every pixel to PIL's libjpeg-turbo decode.
+"""JPEG decoder, equal on every pixel to PIL's libjpeg-turbo decode.
 
 The JAX package decodes a PDF's DCTDecode streams with PIL
 (``rapiddoc_tpu/pdfio/images.py``), which runs libjpeg-turbo with its
@@ -6,31 +6,41 @@ defaults. The card's machine has no PIL, and the OCR models flip near-tie
 characters on a change of one LSB, so this decoder replays libjpeg-turbo's
 arithmetic exactly:
 
-1. the entropy decode: Huffman symbols, DC prediction and restart
-   intervals, into int16 coefficient blocks. ``decode_coefficients_plain``
-   runs it in Python, one symbol at a time. ``csrc/jpeg_entropy.cu`` is
-   the same decode compiled: host code only, built by nvcc like the
-   kernels (``ops/build.py``) and loaded with ctypes. With a card present
-   ``decode_jpeg`` uses the compiled one, with no fallback; without one it
-   uses the plain one.
+1. the entropy decode into int16 coefficient blocks: sequential Huffman
+   scans (symbols, DC prediction, restart intervals) and progressive
+   ones as ``jdphuff.c`` decodes them (DC first and refinement scans, AC
+   first scans with end-of-band runs and AC refinement scans with their
+   correction bits). ``decode_coefficients_plain`` runs it in Python, one
+   symbol at a time. ``csrc/jpeg_entropy.cu`` is the same decode
+   compiled: host code only, built by nvcc like the kernels
+   (``ops/build.py``) and loaded with ctypes. With a card present
+   ``decode_jpeg`` uses the compiled one, with no fallback; without one
+   it uses the plain one.
 2. dequantisation and the ISLOW integer IDCT of ``jidctint.c``
    (CONST_BITS 13, PASS1_BITS 2, the IDCT range limit), on all blocks at
    once in numpy;
-3. the fancy (triangle-filter) upsampling of ``jdsample.c``: h2v1 with its
-   +1/+2 biases, h2v2 with +8/+7, the first and last columns and the
-   context rows at the top and bottom of the image as libjpeg makes them,
-   and plain replication where a component is at most 2 samples wide;
-4. the fixed-point YCbCr->RGB of ``jdcolor.c`` (SCALEBITS 16), and the
-   crop of the padded MCU grid to the image size.
+3. the upsampling of ``jdsample.c`` as libjpeg-turbo 3 picks it: fancy
+   (triangle-filter) h2v1 with its +1/+2 biases, h2v2 with +8/+7 and h1v2
+   with +1/+2, the first and last columns and the context rows at the
+   top and bottom of the image as libjpeg makes them; plain replication
+   (``int_upsample``) for every other integral factor and where an h2
+   component is at most 2 samples wide;
+4. the colour conversion of ``jdcolor.c``: fixed-point YCbCr->RGB
+   (SCALEBITS 16), RGB-coded and CMYK samples as they are, YCCK->CMYK
+   (``ycck_cmyk_convert``); the colour space is libjpeg's guess from the
+   JFIF and Adobe markers and the component ids. PIL reads every
+   four-component JPEG with its ``CMYK;I`` rawmode, so CMYK comes out
+   inverted (255 - value), as in PIL's image.
 
-Steps 2-4 are shared by both entropy decoders.
-
-Takes baseline and extended sequential Huffman JPEGs with 8-bit samples,
-one component (grey) or three (YCbCr), sampled 4:4:4, 4:2:2 or 4:2:0, in
-one interleaved scan or one scan per component, with or without restart
-markers. Anything else (progressive, arithmetic or lossless coding, CMYK,
-RGB-coded, other samplings) raises NotImplementedError. Corrupt entropy
-data raises JpegError where libjpeg would warn and carry on.
+Steps 2-4 are shared by both entropy decoders. libjpeg-turbo's block
+smoothing of progressive images (``jdcoefct.c`` decompress_smooth_data)
+applies only where a component's scans leave low AC coefficients
+unrefined; the progressive streams encoders write (PIL's among them)
+end every coefficient at Al = 0 and never reach it, and a stream that
+would raises NotImplementedError. So do arithmetic-coded, lossless,
+hierarchical and 12-bit JPEGs. Corrupt entropy data raises JpegError
+where libjpeg would warn and carry on, and so does what PIL refuses (two
+components, fractional sampling factors, a bad progression).
 """
 from __future__ import annotations
 
@@ -62,7 +72,7 @@ _SCAN_END = re.compile(rb"\xff+[^\x00\xd0-\xd7\xff]")
 _RESTART = re.compile(rb"\xff+([\xd0-\xd7])")
 
 _SOF_NOT_PORTED = {
-    0xC2: "progressive JPEG", 0xC3: "lossless JPEG",
+    0xC3: "lossless JPEG",
     0xC5: "hierarchical JPEG", 0xC6: "hierarchical JPEG", 0xC7: "hierarchical JPEG",
     0xC9: "arithmetic-coded JPEG", 0xCA: "arithmetic-coded JPEG",
     0xCB: "arithmetic-coded JPEG", 0xCD: "arithmetic-coded JPEG",
@@ -77,6 +87,14 @@ _ERRORS = {
     -4: "missing or misplaced restart marker",
     -5: "bad number of components in a scan",
 }
+
+# jpeg_natural_order with libjpeg's 16 guard entries: a corrupt run past
+# coefficient 63 lands on 63
+_NATURAL = _ZZ + [63] * 16
+# libjpeg-turbo's smoothing_ok: coefficients 0-9 (SAVED_COEFS) and the
+# quantisers it requires nonzero, as natural-order positions
+_SMOOTH_Q = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24)
+_NO_TABLE = np.zeros(1 << 16, np.uint16)
 
 
 @dataclass
@@ -99,6 +117,11 @@ class Scan:
     begin: int  # entropy-coded bytes data[begin:end]
     end: int
     restart_interval: int
+    # spectral selection and successive approximation (progressive scans)
+    ss: int = 0
+    se: int = 63
+    ah: int = 0
+    al: int = 0
 
 
 @dataclass
@@ -110,6 +133,9 @@ class JpegStream:
     scans: list[Scan] = field(default_factory=list)
     hmax: int = 1
     vmax: int = 1
+    progressive: bool = False
+    # libjpeg's jpeg_color_space: grey, ycc, rgb, cmyk or ycck
+    colorspace: str = "grey"
 
     @property
     def mcus_x(self) -> int:
@@ -180,7 +206,7 @@ def parse_jpeg(data: bytes) -> JpegStream:
         if length < 2 or len(seg) != length - 2:
             raise JpegError("truncated marker segment")
         pos += length
-        if marker in (0xC0, 0xC1):  # baseline, extended sequential Huffman
+        if marker in (0xC0, 0xC1, 0xC2):  # sequential, progressive Huffman
             if frame is not None:
                 raise JpegError("two frames in one stream")
             if seg[0] != 8:
@@ -194,8 +220,10 @@ def parse_jpeg(data: bytes) -> JpegStream:
             if width == 0 or not comps or any(not (1 <= c.h <= 4 and 1 <= c.v <= 4) for c in comps):
                 raise JpegError("bad frame header")
             frame = JpegStream(data, width, height, comps,
-                               hmax=max(c.h for c in comps), vmax=max(c.v for c in comps))
-            _check_supported(frame, jfif, adobe_transform)
+                               hmax=max(c.h for c in comps), vmax=max(c.v for c in comps),
+                               progressive=marker == 0xC2)
+            frame.colorspace = _colorspace(frame, jfif, adobe_transform)
+            coef_bits = [[-1] * 64 for _ in comps]
             for c in comps:
                 c.blocks_h, c.blocks_w = frame.mcus_y * c.v, frame.mcus_x * c.h
             for c, prev in zip(comps[1:], comps):
@@ -240,10 +268,10 @@ def parse_jpeg(data: bytes) -> JpegStream:
             ns = seg[0]
             if not 1 <= ns <= 4 or len(seg) != 4 + 2 * ns:  # as get_sos
                 raise JpegError(_ERRORS[-5])
-            idxs, luts = [], []
+            idxs, tables = [], []
             comps = frame.components
             for k in range(ns):
-                cid, tables = seg[1 + 2 * k], seg[2 + 2 * k]
+                cid, sel = seg[1 + 2 * k], seg[2 + 2 * k]
                 # get_sos: the first frame component at or after scan slot
                 # k whose id matches (so the scan keeps the frame's order)
                 ci = next((i for i in range(k, min(len(comps), 4)) if comps[i].cid == cid),
@@ -252,51 +280,86 @@ def parse_jpeg(data: bytes) -> JpegStream:
                     raise JpegError("scan names an unknown component")
                 if ci in idxs:  # libjpeg decodes it twice; no encoder writes it
                     raise JpegError("scan names one component twice")
-                try:
-                    luts += [htables[(0, tables >> 4)], htables[(1, tables & 15)]]
-                except KeyError:
-                    raise JpegError("scan uses an undefined Huffman table") from None
                 comp = frame.components[ci]
                 if comp.qtable is None:  # libjpeg latches at the first scan
                     if comp.tq not in qtables:
                         raise JpegError("component uses an undefined quantisation table")
                     comp.qtable = qtables[comp.tq]
                 idxs.append(ci)
+                tables.append(sel)
             ss, se, ahal = seg[1 + 2 * ns:4 + 2 * ns]
-            if (ss, se, ahal) != (0, 63, 0):
-                raise not_ported("a JPEG scan with spectral selection", "pdfio")
+            ah, al = ahal >> 4, ahal & 15
+            if frame.progressive:
+                _check_progression(ss, se, ah, al, ns)
+                for ci in idxs:  # coef_bits: the Al each coefficient was last coded at
+                    coef_bits[ci][ss:se + 1] = [al] * (se - ss + 1)
+                need_dc, need_ac = ss == 0 and ah == 0, ss > 0
+            else:
+                if (ss, se, ahal) != (0, 63, 0):
+                    raise not_ported("a JPEG scan with spectral selection", "pdfio")
+                need_dc = need_ac = True
+            luts = []
+            try:
+                for sel in tables:
+                    luts += [htables[(0, sel >> 4)] if need_dc else _NO_TABLE,
+                             htables[(1, sel & 15)] if need_ac else _NO_TABLE]
+            except KeyError:
+                raise JpegError("scan uses an undefined Huffman table") from None
             if ns > 1 and sum(frame.components[i].h * frame.components[i].v for i in idxs) > 10:
                 raise JpegError("too many blocks in an MCU")
             m = _SCAN_END.search(data, pos)
             end = m.start() if m else n
-            frame.scans.append(Scan(idxs, luts, pos, end, restart))
+            frame.scans.append(Scan(idxs, luts, pos, end, restart, ss, se, ah, al))
             pos = end
     if frame is None or not frame.scans:
         raise JpegError("no frame or no scan")
     if any(c.qtable is None for c in frame.components):
         raise JpegError("a component is in no scan")
+    if frame.progressive and _smoothing_ok(frame, coef_bits):
+        raise not_ported("a progressive JPEG that libjpeg block-smooths", "pdfio")
     return frame
 
 
-def _check_supported(frame: JpegStream, jfif: bool, adobe_transform: int | None) -> None:
-    """Raise for colour spaces and samplings the decoder does not take;
-    the colour space is libjpeg's default_decompress_parms guess."""
+def _colorspace(frame: JpegStream, jfif: bool, adobe_transform: int | None) -> str:
+    """libjpeg's default_decompress_parms guess of the colour space, and
+    what PIL refuses: other component counts, and sampling factors that
+    do not divide the largest (jdsample.c's JERR_FRACT_SAMPLE_NOTIMPL)."""
     comps = frame.components
+    for c in comps:
+        if frame.hmax % c.h or frame.vmax % c.v:
+            raise JpegError(f"fractional sampling {c.h}x{c.v} of {frame.hmax}x{frame.vmax}")
+    if len(comps) == 1:
+        return "grey"
     if len(comps) == 3:
         ids = tuple(c.cid for c in comps)
         rgb = (not jfif) and (adobe_transform == 0 if adobe_transform is not None
                               else ids == (82, 71, 66))
-        if rgb:
-            raise not_ported("an RGB-coded JPEG", "pdfio")
-    elif len(comps) == 4:
-        raise not_ported("a CMYK or YCCK JPEG", "pdfio")
-    elif len(comps) != 1:
-        raise not_ported(f"a {len(comps)}-component JPEG", "pdfio")
-    for c in comps:
-        if frame.hmax % c.h or frame.vmax % c.v or \
-                (frame.hmax // c.h, frame.vmax // c.v) not in ((1, 1), (2, 1), (2, 2)):
-            raise not_ported(f"JPEG sampling {c.h}x{c.v} of {frame.hmax}x{frame.vmax}",
-                             "pdfio")
+        return "rgb" if rgb else "ycc"
+    if len(comps) == 4:
+        return "ycck" if adobe_transform not in (None, 0) else "cmyk"
+    raise JpegError(f"a {len(comps)}-component JPEG (PIL reads 1, 3 or 4)")
+
+
+def _check_progression(ss: int, se: int, ah: int, al: int, ns: int) -> None:
+    """start_pass_phuff_decoder's checks of a progressive scan."""
+    bad = se != 0 if ss == 0 else (ss > se or se >= 64 or ns != 1)
+    if ah != 0 and al != ah - 1:
+        bad = True
+    if bad or al > 13:
+        raise JpegError(f"bad progression Ss={ss} Se={se} Ah={ah} Al={al}")
+
+
+def _smoothing_ok(frame: JpegStream, coef_bits: list) -> bool:
+    """libjpeg-turbo 3's smoothing_ok after the last scan: every
+    component's DC coded and its first quantisers nonzero, and some
+    coefficient 1-9 of some component not refined to Al = 0."""
+    useful = False
+    for c, bits in zip(frame.components, coef_bits):
+        if any(c.qtable[i] == 0 for i in _SMOOTH_Q) or bits[0] < 0:
+            return False
+        if any(b != 0 for b in bits[1:10]):
+            useful = True
+    return useful
 
 
 def scan_units(jpeg: JpegStream, scan: Scan):
@@ -349,6 +412,9 @@ def decode_coefficients_plain(jpeg: JpegStream) -> np.ndarray:
             for by in range(v) for bx in range(h)
         ]
         hv = [(h, v) for h, v, _, _ in units]
+        if jpeg.progressive:
+            _decode_scan_progressive(scan, segs, ri, total, mcus_x, blocks, hv, flat)
+            continue
         idx: list[int] = []
         val: list[int] = []
         for si, seg in enumerate(segs):
@@ -357,6 +423,163 @@ def decode_coefficients_plain(jpeg: JpegStream) -> np.ndarray:
         if idx:
             flat[np.asarray(idx, np.int64)] = np.asarray(val, np.int64).astype(np.int16)
     return out
+
+
+def _i16(v: int) -> int:
+    """A value stored in a JCOEF (int16), wrapped as C does."""
+    return ((v + 32768) & 0xFFFF) - 32768
+
+
+def _decode_scan_progressive(scan, segs, ri, total, mcus_x, blocks, hv, flat) -> None:
+    """One progressive scan, segment by segment, over the coefficients in
+    ``flat``: the blocks it touches are read into Python ints (the DC
+    values for a DC scan, whole blocks for an AC scan), refined and
+    written back."""
+    bases = []
+    for mcu in range(total):
+        my, mx = divmod(mcu, mcus_x)
+        for k, by, bx, bw, off, _, _ in blocks:
+            h, v = hv[k]
+            bases.append((off + (my * v + by) * bw + mx * h + bx) * 64)
+    cols = np.asarray(bases, np.int64)
+    if scan.ss:
+        cols = cols[:, None] + np.arange(64)
+    coef = flat[cols].astype(np.int64).tolist()
+    per_mcu = len(blocks)
+    for si, seg in enumerate(segs):
+        start, stop = si * ri, min((si + 1) * ri, total)
+        _progressive_segment(seg, scan, blocks, coef, start * per_mcu, (stop - start) * per_mcu,
+                             per_mcu)
+    flat[cols] = np.asarray(coef, np.int64).astype(np.int16)
+
+
+def _progressive_segment(seg: bytes, scan: Scan, units, coef, first: int, count: int,
+                         per_mcu: int) -> None:
+    """One restart segment of a progressive scan (jdphuff.c): ``count``
+    blocks from block ``first`` of ``coef`` (DC values for a DC scan,
+    64-entry natural-order rows for an AC scan, which has one block an
+    MCU); ``units`` are the MCU's blocks (component, ..., DC and AC
+    lookahead tables); predictions and the end-of-band run start from
+    0."""
+    n_real = len(seg) * 8
+    b = np.frombuffer(seg + bytes(8), np.uint8).astype(np.uint32)
+    win = ((b[:-3] << 24) | (b[1:-2] << 16) | (b[2:-1] << 8) | b[3:]).tolist()
+    ss, se, ah, al = scan.ss, scan.se, scan.ah, scan.al
+    preds = [0] * per_mcu
+    p = 0
+    eobrun = 0
+    nat = _NATURAL
+    p1, m1 = 1 << al, -(1 << al)
+
+    def bad(code):
+        return JpegError(_ERRORS[-3 if p > n_real else code])
+
+    try:
+        for i in range(first, first + count):
+            if ss == 0:
+                unit = units[(i - first) % per_mcu]
+                comp, dclut = unit[0], unit[5]
+                if ah == 0:  # DC first
+                    e = dclut[(win[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+                    if not e:
+                        raise bad(-1)
+                    p += e >> 8
+                    s = e & 255
+                    if s:
+                        r = ((win[p >> 3] << (p & 7)) & 0xFFFFFFFF) >> (32 - s)
+                        p += s
+                        if r < 1 << (s - 1):
+                            r -= (1 << s) - 1
+                        preds[comp] += r
+                    coef[i] = _i16(preds[comp] * p1)
+                else:  # DC refinement: one bit
+                    if (win[p >> 3] >> (31 - (p & 7))) & 1:
+                        coef[i] = _i16(coef[i] | p1)
+                    p += 1
+            elif ah == 0:  # AC first
+                if eobrun:
+                    eobrun -= 1
+                else:
+                    row = coef[i]
+                    lut = units[0][6]
+                    k = ss
+                    while k <= se:
+                        e = lut[(win[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+                        if not e:
+                            raise bad(-1)
+                        p += e >> 8
+                        rs = e & 255
+                        r, s = rs >> 4, rs & 15
+                        if s:
+                            k += r
+                            v = ((win[p >> 3] << (p & 7)) & 0xFFFFFFFF) >> (32 - s)
+                            p += s
+                            if v < 1 << (s - 1):
+                                v -= (1 << s) - 1
+                            row[nat[k]] = _i16(v * p1)
+                        elif r == 15:
+                            k += 15
+                        else:
+                            eobrun = 1 << r
+                            if r:
+                                eobrun += ((win[p >> 3] << (p & 7)) & 0xFFFFFFFF) >> (32 - r)
+                                p += r
+                            eobrun -= 1
+                            break
+                        k += 1
+            else:  # AC refinement
+                row = coef[i]
+                lut = units[0][6]
+                k = ss
+                if eobrun == 0:
+                    while k <= se:
+                        e = lut[(win[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+                        if not e:
+                            raise bad(-1)
+                        p += e >> 8
+                        rs = e & 255
+                        r, s = rs >> 4, rs & 15
+                        if s:
+                            bit = (win[p >> 3] >> (31 - (p & 7))) & 1
+                            p += 1
+                            s = p1 if bit else m1
+                        elif r != 15:
+                            eobrun = 1 << r
+                            if r:
+                                eobrun += ((win[p >> 3] << (p & 7)) & 0xFFFFFFFF) >> (32 - r)
+                                p += r
+                            break
+                        while True:  # skip r zero coefficients, correcting the nonzero
+                            pos = nat[k]
+                            if row[pos] != 0:
+                                if (win[p >> 3] >> (31 - (p & 7))) & 1:
+                                    if row[pos] & p1 == 0:
+                                        row[pos] = _i16(row[pos] + (p1 if row[pos] >= 0 else m1))
+                                p += 1
+                            else:
+                                r -= 1
+                                if r < 0:
+                                    break
+                            k += 1
+                            if k > se:
+                                break
+                        if s:
+                            row[nat[k]] = s
+                        k += 1
+                if eobrun > 0:
+                    while k <= se:
+                        pos = nat[k]
+                        if row[pos] != 0:
+                            if (win[p >> 3] >> (31 - (p & 7))) & 1:
+                                if row[pos] & p1 == 0:
+                                    row[pos] = _i16(row[pos] + (p1 if row[pos] >= 0 else m1))
+                            p += 1
+                        k += 1
+                    eobrun -= 1
+            if p > n_real:
+                raise JpegError(_ERRORS[-3])
+    except IndexError:
+        raise JpegError(_ERRORS[-3]) from None
 
 
 def _decode_segment(seg: bytes, mcus: range, mcus_x: int, blocks, hv, idx, val) -> None:
@@ -420,16 +643,18 @@ def _decode_segment(seg: bytes, mcus: range, mcus_x: int, blocks, hv, idx, val) 
         raise JpegError(_ERRORS[-3]) from None
 
 
-def _entropy_decoder():
-    """``jpeg_entropy_decode`` of ``csrc/jpeg_entropy.cu``, built and
-    loaded once per process (ops/build.py), its C signature declared."""
+def _entropy_decoder(progressive: bool = False):
+    """``jpeg_entropy_decode`` (or ``jpeg_progressive_decode``) of
+    ``csrc/jpeg_entropy.cu``, built and loaded once per process
+    (ops/build.py), its C signature declared."""
     from ..ops import build
 
-    fn = build.load("jpeg_entropy").jpeg_entropy_decode
+    lib = build.load("jpeg_entropy")
+    fn = lib.jpeg_progressive_decode if progressive else lib.jpeg_entropy_decode
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_char_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_char_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+                        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+                       + [ctypes.c_int] * (4 if progressive else 0) + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -437,16 +662,19 @@ def _entropy_decoder():
 def decode_coefficients_compiled(jpeg: JpegStream) -> np.ndarray:
     """The same entropy decode through ``csrc/jpeg_entropy.cu``; raises
     JpegError where the plain version does."""
-    fn = _entropy_decoder()
+    fn = _entropy_decoder(jpeg.progressive)
     out = np.zeros((jpeg.n_blocks, 64), np.int16)
     for scan in jpeg.scans:
         mcus_x, mcus_y, units = scan_units(jpeg, scan)
         luts = np.ascontiguousarray(np.stack(scan.luts))
         comp = np.ascontiguousarray(np.asarray(units, np.int32))
-        rc = fn(jpeg.data, scan.begin, scan.end, luts.ctypes.data, len(units),
-                comp.ctypes.data, mcus_x, mcus_y, scan.restart_interval, out.ctypes.data)
+        args = [jpeg.data, scan.begin, scan.end, luts.ctypes.data, len(units),
+                comp.ctypes.data, mcus_x, mcus_y, scan.restart_interval]
+        if jpeg.progressive:
+            args += [scan.ss, scan.se, scan.ah, scan.al]
+        rc = fn(*args, out.ctypes.data)
         if rc != 0:
-            raise JpegError(_ERRORS.get(rc, f"jpeg_entropy_decode returned {rc}"))
+            raise JpegError(_ERRORS.get(rc, f"the entropy decoder returned {rc}"))
     return out
 
 
@@ -534,14 +762,23 @@ def _fancy_h2(c: np.ndarray, bias_left: int, bias_right: int, shift: int) -> np.
 
 
 def upsample(plane: np.ndarray, dw: int, dh: int, fh: int, fv: int) -> np.ndarray:
-    """A component of dw x dh real samples to full size, as jdsample.c:
-    h2v1_fancy_upsample, h2v2_fancy_upsample (context rows: the first row
-    above the top, the last real row below the bottom), or replication
-    where the component is at most 2 samples wide."""
+    """A component of dw x dh real samples to full size, as libjpeg-turbo
+    3's jdsample.c picks the method: h2v1_fancy_upsample,
+    h2v2_fancy_upsample (context rows: the first row above the top, the
+    last real row below the bottom) and h1v2_fancy_upsample; replication
+    (h2v1_upsample, h2v2_upsample, int_upsample) for every other integral
+    factor and where an h2 component is at most 2 samples wide."""
     s = plane[:dh, :dw].astype(np.int32)
     if (fh, fv) == (1, 1):
         return s
-    if dw <= 2:
+    if (fh, fv) == (1, 2):
+        above = np.concatenate([s[:1], s[:-1]], axis=0)
+        below = np.concatenate([s[1:], s[-1:]], axis=0)
+        out = np.empty((2 * dh, dw), np.int32)
+        out[0::2] = (3 * s + above + 1) >> 2
+        out[1::2] = (3 * s + below + 2) >> 2
+        return out
+    if fh != 2 or fv > 2 or dw <= 2:
         return np.repeat(np.repeat(s, fh, axis=1), fv, axis=0)
     if fv == 1:
         return _fancy_h2(s, 1, 2, 2)
@@ -579,26 +816,44 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
 
 
 def reconstruct(jpeg: JpegStream, coefs: np.ndarray) -> np.ndarray:
-    """Coefficients to pixels: (H, W) uint8 for grey, (H, W, 3) RGB."""
+    """Coefficients to pixels as PIL's image holds them: (H, W) uint8 for
+    grey, (H, W, 3) RGB, (H, W, 4) CMYK inverted (PIL's ``CMYK;I``)."""
     planes = component_planes(jpeg, coefs)
     full = []
     for c, plane in zip(jpeg.components, planes):
         dw, dh = jpeg.comp_size(c)
         up = upsample(plane, dw, dh, jpeg.hmax // c.h, jpeg.vmax // c.v)
         full.append(up[:jpeg.height, :jpeg.width])
-    if len(full) == 1:
+    cs = jpeg.colorspace
+    if cs == "grey":
         return full[0].astype(np.uint8)
-    return ycc_to_rgb(*full)
+    if cs == "ycc":
+        return ycc_to_rgb(*full)
+    if cs == "rgb":
+        return np.stack(full, axis=-1).astype(np.uint8)
+    if cs == "ycck":
+        full[:3] = [255 - ycc_to_rgb(*full[:3])[..., i].astype(np.int32) for i in range(3)]
+    return 255 - np.stack(full, axis=-1).astype(np.uint8)
+
+
+def cmyk_to_rgb_pil(cmyk: np.ndarray) -> np.ndarray:
+    """Pillow's ``convert("RGB")`` of a CMYK image (``cmyk2rgb``): each
+    channel ``255 - k - c * (255 - k) / 255`` with Pillow's rounded
+    division, clipped."""
+    c = cmyk.astype(np.int32)
+    nk = 255 - c[..., 3:4]
+    t = c[..., :3] * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
     """A JPEG stream to its pixels as PIL's ``Image.open(...)`` gives them
-    (mode L as (H, W), YCbCr as RGB (H, W, 3)), through the compiled
-    entropy decoder where a card is present and the plain one where none
-    is."""
-    import torch
+    (mode L as (H, W), RGB as (H, W, 3), CMYK as PIL's inverted (H, W,
+    4)), through the compiled entropy decoder where a card is present and
+    the plain one where none is (``ops.build.host_compiled``)."""
+    from ..ops import build
 
     jpeg = parse_jpeg(data)
-    if torch.cuda.is_available():
+    if build.host_compiled():
         return reconstruct(jpeg, decode_coefficients_compiled(jpeg))
     return reconstruct(jpeg, decode_coefficients_plain(jpeg))

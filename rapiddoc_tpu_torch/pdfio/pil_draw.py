@@ -439,11 +439,11 @@ def fill_coverage(polys, width: int, height: int):
     return None if cov is None else (cov[0], cov[1], cov[2] > 0)
 
 
-def blend_spans(canvas: np.ndarray, spans, points, rgba) -> None:
-    """Blend ``rgba`` once per shape over each pixel: ``spans`` are span
-    arrays tagged by shape (one shape never twice on a pixel), ``points``
-    (y, x) arrays of single-pixel shapes. Shapes of different span arrays
-    are different shapes."""
+def _shape_counts(canvas: np.ndarray, spans, points):
+    """How many shapes cover each pixel of ``canvas`` (see _counts):
+    ``spans`` are span arrays tagged by shape (one shape never twice on a
+    pixel; shapes of different arrays are different shapes), ``points``
+    (y, x) arrays of single-pixel shapes."""
     h, w = canvas.shape[:2]
     sid, ys, xa, xb = [], [], [], []
     base = 0
@@ -458,7 +458,24 @@ def blend_spans(canvas: np.ndarray, spans, points, rgba) -> None:
     pts = None
     if points:
         pts = (np.concatenate([p[0] for p in points]), np.concatenate([p[1] for p in points]))
-    _blend_counts(canvas, _counts(joined, w, h, pts), rgba)
+    return _counts(joined, w, h, pts)
+
+
+def blend_spans(canvas: np.ndarray, spans, points, rgba) -> None:
+    """Blend ``rgba`` once per shape over each pixel (``ImageDraw`` in
+    "RGBA" mode on an RGB image)."""
+    _blend_counts(canvas, _shape_counts(canvas, spans, points), rgba)
+
+
+def write_spans(canvas: np.ndarray, spans, points, ink) -> None:
+    """What ``ImageDraw`` does on an image of its own mode (no blending):
+    every pixel a shape covers takes ``ink``, alpha included."""
+    cov = _shape_counts(canvas, spans, points)
+    if cov is None:
+        return
+    x0, y0, counts = cov
+    region = canvas[y0:y0 + counts.shape[0], x0:x0 + counts.shape[1]]
+    region[counts > 0] = np.asarray(ink, np.uint8)
 
 
 # ------------------------------------------------------------------- lines

@@ -31,7 +31,7 @@ import zlib
 import numpy as np
 
 from ..utils.unported import not_ported
-from .jpeg import decode_jpeg
+from .jpeg import cmyk_to_rgb_pil, decode_jpeg
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -157,12 +157,14 @@ def encode_png(img: np.ndarray) -> bytes:
 def decode_image(data: bytes) -> np.ndarray:
     """An image file's pixels as ``images_to_pdf`` takes them from PIL:
     (H, W) for mode ``L``, else (H, W, 3) RGB. PNG (``decode_png``) and
-    the baseline JPEGs ``pdfio.jpeg`` decodes; GIF, WEBP, BMP, TIFF and
-    the rest raise NotImplementedError naming ROADMAP item 12 (12d)."""
+    the JPEGs ``pdfio.jpeg`` decodes (a CMYK one through Pillow's
+    ``convert("RGB")``); GIF, WEBP, BMP, TIFF and the rest raise
+    NotImplementedError naming ROADMAP item 12 (12d)."""
     if data.startswith(SIGNATURE):
         return decode_png(data)
     if data[:3] == b"\xff\xd8\xff":
-        return decode_jpeg(data)
+        img = decode_jpeg(data)
+        return cmyk_to_rgb_pil(img) if img.ndim == 3 and img.shape[2] == 4 else img
     kind = {b"GIF8": "GIF", b"RIFF": "WEBP", b"BM": "BMP", b"II*\x00": "TIFF",
             b"MM\x00*": "TIFF"}
     for magic, name in kind.items():

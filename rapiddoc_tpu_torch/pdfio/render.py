@@ -36,7 +36,15 @@ cv2 calls become numpy, each held byte-equal to Pillow 12.1 or OpenCV:
   (``ft_face`` and ``ft_raster``, FreeType's outline scaling and smooth
   rasterizer) and pasted through its alpha, upright or turned with PIL's
   BICUBIC ``rotate``, with the JAX package's run, face and tile caches at
-  document scope. FreeType's hinting is not replayed (``ft_face``).
+  document scope. FreeType's hinting is not replayed (``ft_face``);
+- shadings (``sh``) and pattern fills, as the JAX package paints them:
+  the shading (``pdfio.shading``) over the clip box, the path's box and
+  the shading's BBox, through its alpha, the fill alpha, the clip mask
+  and the path's coverage, truncated to an ``L`` mask; a tiling
+  pattern's cell drawn by a nested rasterizer on a transparent RGBA
+  canvas (where ImageDraw writes the ink, alpha included, without
+  blending), pasted through its own alpha across the path's box, and
+  mid-grey for steps that are not axis-aligned.
 
 The JAX package allocates a full-canvas layer for every clipped fill or
 stroke; here every layer covers only the shape's rows and columns, and
@@ -46,8 +54,10 @@ of one ink commute), which gives the same bytes.
 What the JAX package would draw and this module does not draw yet raises
 NotImplementedError naming its ROADMAP item, and is never left as
 background: faces of bitmap strikes and text that needs complex shaping
-(``ft_face``), pattern fills, shadings and the codecs ``pdfio.images``
-does not take. The content
+(``ft_face``) and the codecs ``pdfio.images`` does not take (JPX). Where
+the JAX package catches a failure and draws nothing (an image that does
+not decode, a shading or pattern that raises) or mid-grey (a tiling cell
+whose content raises), the page fails here. The content
 interpreter skips an operator that raises, as the JAX package's does; so a
 hook records what it cannot draw, inside a Type3 glyph too, and
 ``render_page_full`` raises it after the pass.
@@ -62,7 +72,6 @@ from pathlib import Path
 import numpy as np
 
 from ..models.ocr.pre_post import resize_area, resize_linear
-from ..utils.unported import not_ported
 from . import pil_draw
 from .ft_face import Face, open_program
 from .content import ContentInterpreter, Matrix, mat_apply, mat_mul, mat_scale_of
@@ -70,6 +79,7 @@ from .cos import Stream
 from .document import PdfPage
 from .fonts import Font
 from .images import xobject_to_array
+from .shading import render_shading
 from .pil_resample import resize, rotate_expand, rotate_expand_bicubic
 from .text import page_base_ctm
 
@@ -233,6 +243,7 @@ class PageRasterizer(ContentInterpreter):
         self.canvas[:] = background
         self.failure: Exception | None = None
         self._clipmask_cache: dict = {}
+        self._tile_cache: dict = {}
         # blends waiting to be drawn: one RGBA ink, its polygons and its
         # lines by width
         self._ink: tuple | None = None
@@ -254,7 +265,9 @@ class PageRasterizer(ContentInterpreter):
         raise exc
 
     def render(self) -> np.ndarray:
-        self.run(page_base_ctm(self.page, self.scale))
+        # pattern matrices map pattern space to the page's default space
+        self._base_ctm = page_base_ctm(self.page, self.scale)
+        self.run(self._base_ctm)
         self._flush()
         if self.failure is not None:
             raise self.failure
@@ -275,14 +288,20 @@ class PageRasterizer(ContentInterpreter):
     def _flush(self) -> None:
         if self._ink is None:
             return
-        spans = [pil_draw.polygon_spans(self._polys, self.height, True)] if self._polys else []
+        # on the RGBA cell of a tiling pattern ImageDraw does not blend: it
+        # writes the ink, alpha included, with its non-alpha polygon scan
+        blend = self.canvas.shape[2] == 3
+        spans = [pil_draw.polygon_spans(self._polys, self.height, blend)] if self._polys else []
         points = []
         for width, lines in self._lines.items():
-            sp, pts = pil_draw.line_spans(lines, width, self.height, True)
+            sp, pts = pil_draw.line_spans(lines, width, self.height, blend)
             spans.append(sp)
             if pts is not None:
                 points.append(pts)
-        pil_draw.blend_spans(self.canvas, spans, points, self._ink)
+        if blend:
+            pil_draw.blend_spans(self.canvas, spans, points, self._ink)
+        else:
+            pil_draw.write_spans(self.canvas, spans, points, self._ink)
         self._ink = None
         self._polys = []
         self._lines = {}
@@ -293,8 +312,10 @@ class PageRasterizer(ContentInterpreter):
         gs = self.gs
         if fill:
             if gs.fill_pattern is not None:
-                self._fail(not_ported("pattern fills", "pdfio"))
-            self._paint_polys(path, pil_draw.ink(gs.fill_color, gs.fill_alpha))
+                self._flush()
+                self._guard(self._fill_with_pattern, path)
+            else:
+                self._paint_polys(path, pil_draw.ink(gs.fill_color, gs.fill_alpha))
         if stroke:
             color = pil_draw.ink(gs.stroke_color, gs.stroke_alpha)
             lw = max(1, int(round(gs.line_width * mat_scale_of(gs.ctm))))
@@ -310,10 +331,188 @@ class PageRasterizer(ContentInterpreter):
                     layer = layer * np.uint8(color[3])
                     h, w = layer.shape
                     layer = pil_draw.multiply(layer, mask[y0:y0 + h, x0:x0 + w])
-                    pil_draw.paste_mask(self.canvas, color[:3], layer, x0, y0)
+                    self._paste_mask(color[:3], layer, x0, y0)
+
+    def _guard(self, fn, *args) -> None:
+        """Run a paint that the interpreter would skip on an error; here
+        every error fails the page."""
+        try:
+            fn(*args)
+        except Exception as exc:  # noqa: BLE001 - every failure is fatal here
+            self._fail(exc)
+
+    # -------------------------------------------------------------- shadings
 
     def on_shading(self, ops: list, res: dict) -> None:
-        self._fail(not_ported("shadings", "pdfio"))
+        """``sh`` paints the shading across the current clip region."""
+        if not ops or not isinstance(ops[0], str):
+            return
+        shs = self.doc.resolve(res.get("Shading"))
+        sh = self.doc.resolve(shs.get(ops[0])) if isinstance(shs, dict) else None
+        if sh is None:
+            return
+        self._flush()
+        self._guard(self._paint_shading, sh, self.gs.ctm, None, None)
+
+    def _paint_shading(self, sh, ctm, region, extra_mask) -> None:
+        """The shading over the clip box, the region and the shading's own
+        BBox, through its alpha, the fill alpha, the clip mask and
+        ``extra_mask`` (sized to ``region``), in float64 as the JAX
+        package multiplies them, then truncated to an ``L`` mask."""
+        gs = self.gs
+        r = self.doc.resolve
+        x0, y0, x1, y1 = 0, 0, self.width, self.height
+        if gs.clip_bbox is not None:
+            cb = gs.clip_bbox
+            x0 = max(x0, int(math.floor(cb[0])))
+            y0 = max(y0, int(math.floor(cb[1])))
+            x1 = min(x1, int(math.ceil(cb[2])))
+            y1 = min(y1, int(math.ceil(cb[3])))
+        if region is not None:
+            x0, y0 = max(x0, region[0]), max(y0, region[1])
+            x1, y1 = min(x1, region[2]), min(y1, region[3])
+        sh_dict = sh.dict if hasattr(sh, "dict") else sh
+        if isinstance(sh_dict, dict):
+            bb = r(sh_dict.get("BBox"))
+            if isinstance(bb, list) and len(bb) == 4:
+                v = [float(r(b)) for b in bb]
+                pts = [mat_apply(ctm, v[0], v[1]), mat_apply(ctm, v[2], v[1]),
+                       mat_apply(ctm, v[2], v[3]), mat_apply(ctm, v[0], v[3])]
+                x0 = max(x0, int(math.floor(min(p[0] for p in pts))))
+                y0 = max(y0, int(math.floor(min(p[1] for p in pts))))
+                x1 = min(x1, int(math.ceil(max(p[0] for p in pts))))
+                y1 = min(y1, int(math.ceil(max(p[1] for p in pts))))
+        if x1 <= x0 or y1 <= y0:
+            return
+        out = render_shading(self.doc, sh, ctm, (x0, y0, x1, y1))
+        if out is None:
+            return
+        rgb, alpha = out
+        a = alpha * gs.fill_alpha
+        mask = self._clip_mask()
+        if mask is not None:
+            a = a * (mask[y0:y1, x0:x1].astype(np.float64) / 255.0)
+        if extra_mask is not None:
+            if region is not None and extra_mask.shape != a.shape:
+                oy, ox = region[1], region[0]
+                extra_mask = extra_mask[y0 - oy:y1 - oy, x0 - ox:x1 - ox]
+            a = a * extra_mask
+        self._paste_mask(rgb, (np.clip(a, 0.0, 1.0) * 255).astype(np.uint8), x0, y0)
+
+    def _fill_with_pattern(self, path) -> None:
+        """Fill the subpaths' union with the active shading or tiling
+        pattern, as the JAX package's ``_fill_with_pattern``: the pattern
+        painted over the path's box (cut by the clip box), through the
+        polygon coverage times the clip mask."""
+        kind, payload, matrix = self.gs.fill_pattern
+        xs = [p[0] for sub in path for p in sub]
+        ys = [p[1] for sub in path for p in sub]
+        if not xs:
+            return
+        rx0 = max(int(math.floor(min(xs))), 0)
+        ry0 = max(int(math.floor(min(ys))), 0)
+        rx1 = min(int(math.ceil(max(xs))), self.width)
+        ry1 = min(int(math.ceil(max(ys))), self.height)
+        cb = self.gs.clip_bbox
+        if cb is not None:
+            rx0 = max(rx0, int(math.floor(cb[0])))
+            ry0 = max(ry0, int(math.floor(cb[1])))
+            rx1 = min(rx1, int(math.ceil(cb[2])))
+            ry1 = min(ry1, int(math.ceil(cb[3])))
+        if rx1 <= rx0 or ry1 <= ry0:
+            return
+        poly = np.zeros((self.height, self.width), np.uint8)
+        cov = pil_draw.fill_coverage([sub for sub in path if len(sub) >= 3],
+                                     self.width, self.height)
+        if cov is not None:
+            cx, cy, inside = cov
+            poly[cy:cy + inside.shape[0], cx:cx + inside.shape[1]][inside] = 255
+        poly_np = poly[ry0:ry1, rx0:rx1].astype(np.float64) / 255.0
+        mask0 = self._clip_mask()
+        if mask0 is not None:
+            poly_np = poly_np * (mask0[ry0:ry1, rx0:rx1].astype(np.float64) / 255.0)
+        base = getattr(self, "_base_ctm", self.gs.ctm)
+        pat_ctm = mat_mul(matrix, base)
+        if kind == "shading":
+            self._paint_shading(payload, pat_ctm, (rx0, ry0, rx1, ry1), poly_np)
+            return
+        tile = self._tiling_tile(payload, pat_ctm)
+        if tile is None:  # a tiling whose steps are not axis-aligned: mid-grey
+            self._paste_mask((128, 128, 128), (poly_np * 255).astype(np.uint8), rx0, ry0)
+            return
+        tile_img, tx0, ty0, stepx, stepy = tile
+        th, tw = tile_img.shape[:2]
+        if stepx <= 0 or stepy <= 0:
+            return
+        i0 = int(math.floor((rx0 - tx0) / stepx))
+        j0 = int(math.floor((ry0 - ty0) / stepy))
+        i1 = int(math.ceil((rx1 - tx0) / stepx))
+        j1 = int(math.ceil((ry1 - ty0) / stepy))
+        if (i1 - i0) * (j1 - j0) > 4096:
+            return  # degenerate step, as the JAX package gives up
+        layer = np.zeros((ry1 - ry0, rx1 - rx0, 4), np.uint8)
+        for j in range(j0, j1 + 1):
+            for i in range(i0, i1 + 1):
+                px = int(round(tx0 + i * stepx)) - rx0
+                py = int(round(ty0 + j * stepy)) - ry0
+                if px > layer.shape[1] or py > layer.shape[0]:
+                    continue
+                if px + tw < 0 or py + th < 0:
+                    continue
+                pil_draw.paste_mask(layer, tile_img, tile_img[..., 3], px, py)
+        la = (layer[..., 3].astype(np.float64) / 255.0) * poly_np
+        self._paste_mask(layer[..., :3], (np.clip(la, 0, 1) * 255).astype(np.uint8), rx0, ry0)
+
+    def _tiling_tile(self, pat_stream, pat_ctm):
+        """One tiling-pattern cell drawn onto a transparent RGBA canvas by a
+        nested rasterizer: (tile, origin x, origin y, x step, y step) in
+        device pixels, or None where the JAX package gives up (steps that
+        are not axis-aligned, a cell over 2048 pixels, a bad BBox, nesting
+        past the form depth). A cell whose content fails fails the page."""
+        doc = self.doc
+        pd = pat_stream.dict if hasattr(pat_stream, "dict") else None
+        if not isinstance(pd, dict):
+            return None
+        if self._form_depth >= self.MAX_FORM_DEPTH:
+            return None
+        cache = self._tile_cache
+        key = (id(pat_stream), tuple(round(v, 3) for v in pat_ctm))
+        if key in cache:
+            return cache[key]
+        try:
+            bb = [float(doc.resolve(v)) for v in doc.resolve(pd.get("BBox"))]
+            xstep = float(doc.resolve(pd.get("XStep", bb[2] - bb[0])) or (bb[2] - bb[0]))
+            ystep = float(doc.resolve(pd.get("YStep", bb[3] - bb[1])) or (bb[3] - bb[1]))
+        except (TypeError, ValueError, IndexError):
+            cache[key] = None
+            return None
+        a, b, c, d_, _, _ = pat_ctm
+        sx_dev = (xstep * a, xstep * b)
+        sy_dev = (ystep * c, ystep * d_)
+        if abs(sx_dev[1]) > 0.01 * abs(sx_dev[0] or 1) or abs(sy_dev[0]) > 0.01 * abs(sy_dev[1] or 1):
+            cache[key] = None
+            return None
+        corners = [mat_apply(pat_ctm, bb[0], bb[1]), mat_apply(pat_ctm, bb[2], bb[1]),
+                   mat_apply(pat_ctm, bb[2], bb[3]), mat_apply(pat_ctm, bb[0], bb[3])]
+        tx0 = min(p[0] for p in corners)
+        ty0 = min(p[1] for p in corners)
+        tw = max(1, int(math.ceil(max(p[0] for p in corners) - tx0)))
+        th = max(1, int(math.ceil(max(p[1] for p in corners) - ty0)))
+        if tw > 2048 or th > 2048:
+            cache[key] = None
+            return None
+        sub = PageRasterizer(self.page, scale=self.scale)
+        sub._form_depth = self._form_depth + 1
+        sub.canvas = np.zeros((th, tw, 4), np.uint8)
+        sub.width, sub.height = tw, th
+        sub.gs.ctm = mat_mul(pat_ctm, (1, 0, 0, 1, -tx0, -ty0))
+        sub.execute(doc.stream_bytes(pat_stream), doc.resolve(pd.get("Resources")) or {})
+        sub._flush()
+        if sub.failure is not None:
+            raise sub.failure
+        out = (sub.canvas, tx0, ty0, abs(sx_dev[0]), abs(sy_dev[1]))
+        cache[key] = out
+        return out
 
     # ------------------------------------------------------- clip machinery
 
@@ -383,7 +582,7 @@ class PageRasterizer(ContentInterpreter):
             arr = (arr.astype(np.uint16) * mask[y0:y0 + h, x0:x0 + w] // 255).astype(np.uint8)
         if rgba[3] < 255:
             arr = (arr.astype(np.uint16) * rgba[3] // 255).astype(np.uint8)
-        pil_draw.paste_mask(self.canvas, rgba[:3], arr, x0, y0)
+        self._paste_mask(rgba[:3], arr, x0, y0)
 
     def _with_clip_mask(self, origin, alpha: np.ndarray | None, size=None):
         """A paste alpha combined with the clip mask at ``origin`` (the
@@ -495,7 +694,7 @@ class PageRasterizer(ContentInterpreter):
             self._glyph_cache[key] = entry
         tile, dx, dy = entry
         x, y = origin
-        pil_draw.paste_mask(self.canvas, tile[..., :3], tile[..., 3], int(x + dx), int(y + dy))
+        self._paste_mask(tile, tile[..., 3], int(x + dx), int(y + dy))
 
     def _draw_rotated(self, text: str, face: Face, color: tuple, origin, rotation: float) -> None:
         """A tile drawn with the pad of 4, turned by ``-rotation`` with PIL's
@@ -526,8 +725,7 @@ class PageRasterizer(ContentInterpreter):
             self._rot_cache[key] = rotated
         ox, oy = origin
         rh, rw = rotated.shape[:2]
-        pil_draw.paste_mask(self.canvas, rotated[..., :3], rotated[..., 3],
-                            int(ox - rw / 2), int(oy - rh / 2))
+        self._paste_mask(rotated, rotated[..., 3], int(ox - rw / 2), int(oy - rh / 2))
 
     def _draw_type3(self, code: int, font: Font, trm: Matrix) -> bool:
         """Run a Type3 glyph's CharProc under FontMatrix x trm; False when
@@ -610,7 +808,7 @@ class PageRasterizer(ContentInterpreter):
             # stencil mask: the fill colour through the mask, unflipped
             color = tuple(int(v * 255) for v in self.gs.fill_color)
             mask = self._with_clip_mask(origin, resize(img[..., 0], dst_w, dst_h, "bicubic"))
-            pil_draw.paste_mask(self.canvas, color, mask, *origin)
+            self._paste_mask(color, mask, *origin)
             return
         a, b, c, d, _, _ = ctm
         if a < 0:  # FLIP_LEFT_RIGHT
@@ -633,7 +831,7 @@ class PageRasterizer(ContentInterpreter):
                 img = resize(img, dst_w, dst_h, "bilinear")
         if rgba:
             pmask = self._with_clip_mask(origin, img[..., 3])
-            pil_draw.paste_mask(self.canvas, img[..., :3], pmask, *origin)
+            self._paste_mask(img, pmask, *origin)
             return
         if img.ndim == 2:
             img = np.repeat(img[..., None], 3, 2)
@@ -641,7 +839,7 @@ class PageRasterizer(ContentInterpreter):
         if pmask is None:
             self._paste(img, *origin)
         else:
-            pil_draw.paste_mask(self.canvas, img, pmask, *origin)
+            self._paste_mask(img, pmask, *origin)
 
     def _paste(self, img: np.ndarray, ox: int, oy: int) -> None:
         """PIL ``Image.paste`` at (ox, oy), clipped to the canvas."""
@@ -650,7 +848,26 @@ class PageRasterizer(ContentInterpreter):
         cx1, cy1 = min(ox + w, self.width), min(oy + h, self.height)
         if cx1 <= cx0 or cy1 <= cy0:
             return
-        self.canvas[cy0:cy1, cx0:cx1] = img[cy0 - oy:cy1 - oy, cx0 - ox:cx1 - ox]
+        self.canvas[cy0:cy1, cx0:cx1] = self._source(img)[cy0 - oy:cy1 - oy, cx0 - ox:cx1 - ox]
+
+    def _source(self, src):
+        """A paste's source in the canvas's bands: on the RGB page the
+        colour bands; on a tiling pattern's RGBA cell an RGB source gains
+        alpha 255 (PIL converts it to RGBA) and an RGBA one keeps its own."""
+        rgba = self.canvas.shape[2] == 4
+        if not isinstance(src, np.ndarray):
+            src = tuple(src)
+            return (src[:3] + (255,)) if rgba and len(src) == 3 else src[:4 if rgba else 3]
+        if not rgba:
+            return src[..., :3]
+        if src.shape[2] == 4:
+            return src
+        return np.concatenate([src, np.full(src.shape[:2] + (1,), 255, np.uint8)], axis=2)
+
+    def _paste_mask(self, src, mask: np.ndarray, ox: int, oy: int) -> None:
+        """``canvas.paste(src, (ox, oy), mask)`` with an ``L`` mask (every
+        band of the canvas blended)."""
+        pil_draw.paste_mask(self.canvas, self._source(src), mask, ox, oy)
 
 
 class _RenderAndExtract(PageRasterizer):

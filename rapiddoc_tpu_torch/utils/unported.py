@@ -10,7 +10,7 @@ from __future__ import annotations
 # ROADMAP.md, Queue 1: item number and title of each item the port
 # raises for
 ITEMS = {
-    "pdfio": (12, "12d, the other codecs, colour spaces, patterns and shadings"),
+    "pdfio": (12, "12d, image files but PNG and JPEG, JPX, rare JPEG codings, other filters"),
     "glyphs": (12, "12c's rest, bitmap-strike faces and complex shaping"),
     "host_families": (15, "the host-only families"),
     "checkpoints": (17, "checkpoint converters and published checkpoints"),

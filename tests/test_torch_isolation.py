@@ -1,6 +1,8 @@
 """The port imports torch, numpy, scipy and the standard library only:
 no jax, flax, cv2, PIL, fontTools, and nothing of the JAX package. The card's
-machine is not guaranteed any of those, so this is the CPU-side guard."""
+machine is not guaranteed any of those, so this is the CPU-side guard. The
+child process imports every module of the port with those blocked and runs
+the main path, Magika, and the CCITT, JBIG2 and shading code."""
 import ast
 import os
 import subprocess
@@ -54,7 +56,23 @@ MAIN_PATH_MODULES = (
     "rapiddoc_tpu_torch.tools.onnx_writer", "rapiddoc_tpu_torch.utils.sniff",
     "rapiddoc_tpu_torch.models.layout.onnx_engine",
     "rapiddoc_tpu_torch.models.table.onnx_models",
+    # the scanned and born-digital codecs
+    "rapiddoc_tpu_torch.pdfio.ccitt", "rapiddoc_tpu_torch.pdfio.jbig2",
+    "rapiddoc_tpu_torch.pdfio.shading",
 )
+
+
+def _jbig2_stream() -> bytes:
+    """A JBIG2 page of one generic region, from the test encoder (which
+    the child process cannot import: it borrows the JAX package's
+    tables)."""
+    sys.path.insert(0, str(REPO / "tests"))
+    import numpy as np
+
+    import jbig2_encoder as E
+
+    bmp = (np.arange(12 * 20).reshape(12, 20) % 7 == 0).astype(np.uint8)
+    return E.segment(1, 48, [], 1, E.page_info(20, 12)) + E.generic_region_segment(2, bmp)
 
 
 def test_port_imports_and_runs_with_banned_modules_blocked():
@@ -92,6 +110,18 @@ def test_port_imports_and_runs_with_banned_modules_blocked():
         # Magika through the ONNX interpreter
         from rapiddoc_tpu_torch.utils.sniff import guess_suffix_by_bytes
         assert guess_suffix_by_bytes(b"  " + pdf, device="cpu") == "pdf"
+        # the bilevel decoders and a shading, plain
+        from rapiddoc_tpu_torch.pdfio import ccitt, jbig2, shading
+        bits, rows = ccitt.decode_bits_plain(bytes([255]), 9, 8, -1)  # eight V0 rows
+        assert rows == 8 and not bits.any()
+        bmp = (np.arange(12 * 20).reshape(12, 20) % 7 == 0).astype(np.uint8)
+        assert (jbig2.decode({_jbig2_stream()!r}) == bmp).all()
+        class Doc:
+            resolve = staticmethod(lambda x: x)
+        sh = {{"ShadingType": 2, "Coords": [0, 0, 10, 0], "Function": {{"FunctionType": 2,
+              "C0": [0], "C1": [1], "N": 1}}, "ColorSpace": "DeviceGray"}}
+        rgb, alpha = shading.render_shading(Doc(), sh, (1, 0, 0, 1, 0, 0), (0, 0, 10, 2))
+        assert rgb.shape == (2, 10, 3) and rgb[0, 9, 0] > rgb[0, 0, 0]
         loaded = sorted(k for k in sys.modules if k.split(".")[0] in {BANNED!r}
                         and sys.modules[k] is not None)
         assert not loaded, loaded

@@ -7,9 +7,14 @@ give PIL's pixels exactly: on the fixture PDF's three streams, and on
 random and synthetic-text images that PIL encodes at qualities 50, 75,
 92 and 100, sampled 4:4:4, 4:2:2 and 4:2:0 or grey, at sizes that are
 not multiples of 16 (1x1 and 17x33 among them), with and without
-restart markers. Progressive and CMYK streams raise NotImplementedError;
-corrupt ones, and scans that name their components as libjpeg-turbo
-refuses them, raise JpegError.
+restart markers; on PIL's progressive streams (colour and grey, every
+sampling, restart markers, optimised tables) and CMYK ones (Adobe,
+inverted as PIL's CMYK;I); and on hand-built streams of forms PIL does
+not write (``tests/torch_jpeg_forms.py``: YCCK, RGB-coded, h1v2, h4v1
+and other samplings). Arithmetic-coded and lossless streams, progressive
+ones that libjpeg would block-smooth, and GIF files raise
+NotImplementedError; corrupt streams, and scans that name their
+components as libjpeg-turbo refuses them, raise JpegError.
 
 The compiled entropy decode (``csrc/jpeg_entropy.cu``) is held to the
 plain one on the card, where PIL is absent: ``chip_smoke.py`` phase jpeg
@@ -187,17 +192,119 @@ def test_scan_components_are_found_as_libjpeg_finds_them(frame_ids, scan_ids):
         assert np.array_equal(plain_decode(data), want)
 
 
-@pytest.mark.parametrize("kind", ["progressive", "cmyk"])
-def test_unsupported_streams_raise(kind):
+def _once_unsupported(kind: str) -> bytes:
     img = fixture_pages()[0][:64, :64]
     if kind == "progressive":
-        data = encode(img, quality=90, progressive=True)
-    else:
+        return encode(img, quality=90, progressive=True)
+    buf = io.BytesIO()
+    Image.fromarray(img).convert("CMYK").save(buf, format="JPEG")
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("kind", ["progressive", "cmyk"])
+def test_once_unsupported_streams_equal_pil(kind):
+    """Progressive and CMYK streams, which raised before they were
+    ported, give PIL's pixels (CMYK as PIL's inverted CMYK;I)."""
+    data = _once_unsupported(kind)
+    assert np.array_equal(plain_decode(data), pil_decode(data))
+
+
+PROGRESSIVE = [(size, sub, q) for size in [(1, 1), (17, 33), (40, 70), (65, 47)]
+               for sub in ("444", "422", "420") for q in (50, 92)]
+
+
+@pytest.mark.parametrize("size,sub,quality", PROGRESSIVE)
+def test_progressive_streams_equal_pil(size, sub, quality):
+    """PIL's progressive streams (spectral selection, successive
+    approximation, end-of-band runs), colour and grey, with and without
+    restart markers and optimised tables."""
+    rng = np.random.default_rng(size[0] * 100 + size[1] + quality)
+    img = rng.integers(0, 256, size + (3,), dtype=np.uint8)
+    img = ((img.astype(np.int32) + np.roll(img, 1, 0)) // 2).astype(np.uint8)
+    for data in (encode(img, quality=quality, subsampling=SUBSAMPLING[sub], progressive=True),
+                 encode(img[..., 0], quality=quality, progressive=True, optimize=True),
+                 encode(img, quality=quality, subsampling=SUBSAMPLING[sub], progressive=True,
+                        restart_marker_blocks=2)):
+        assert jpeg.parse_jpeg(data).progressive
+        assert np.array_equal(plain_decode(data), pil_decode(data))
+
+
+@pytest.mark.parametrize("sub", ["444", "420"])
+def test_cmyk_streams_equal_pil(sub):
+    """Adobe CMYK streams as PIL writes them, progressive too."""
+    rng = np.random.default_rng(4)
+    img = Image.fromarray(rng.integers(0, 256, (23, 41, 3), dtype=np.uint8)).convert("CMYK")
+    for kw in ({}, {"progressive": True}, {"quality": 40}):
         buf = io.BytesIO()
-        Image.fromarray(img).convert("CMYK").save(buf, format="JPEG")
+        img.save(buf, format="JPEG", subsampling=SUBSAMPLING[sub], **kw)
         data = buf.getvalue()
+        assert np.array_equal(plain_decode(data), pil_decode(data))
+
+
+HAND_FORMS = {
+    "ycck": ([(1, 1)] * 4, {"adobe": 2}),
+    "ycck_420": ([(2, 2), (1, 1), (1, 1), (2, 2)], {"adobe": 2}),
+    "ycck_adobe1": ([(2, 1), (1, 1), (1, 1), (2, 1)], {"adobe": 1}),
+    "cmyk_no_marker": ([(1, 1)] * 4, {}),
+    "rgb_adobe0": ([(1, 1)] * 3, {"adobe": 0}),
+    "rgb_ids": ([(2, 1), (1, 1), (1, 1)], {"ids": [82, 71, 66]}),
+    "ycc_jfif_rgb_ids": ([(1, 1)] * 3, {"ids": [82, 71, 66], "jfif": True}),
+    "h1v2": ([(1, 2), (1, 1), (1, 1)], {}),
+    "h4v1": ([(4, 1), (1, 1), (1, 1)], {}),
+    "h3v1": ([(3, 1), (1, 1), (1, 1)], {}),
+    "h1v3": ([(1, 3), (1, 1), (1, 1)], {}),
+    "mixed_2x2_1x2": ([(2, 2), (1, 2), (1, 1)], {}),
+    "chroma_larger": ([(1, 1), (2, 2), (1, 1)], {}),
+    "h4v2": ([(4, 2), (1, 1), (1, 1)], {}),
+    "h2v1_chroma_2x1": ([(2, 2), (2, 1), (1, 1)], {}),
+}
+
+
+@pytest.mark.parametrize("name", list(HAND_FORMS))
+def test_hand_built_forms_equal_pil(name):
+    """Forms no encoder here writes (YCCK, RGB-coded, other samplings),
+    built by hand at widths of 1-2 samples and larger."""
+    from torch_jpeg_forms import hand_jpeg
+
+    samp, kw = HAND_FORMS[name]
+    rng = np.random.default_rng(len(name))
+    for w, h in ((1, 1), (2, 9), (9, 2), (23, 17), (48, 33)):
+        data = hand_jpeg(w, h, samp, rng, **kw)
+        assert np.array_equal(plain_decode(data), pil_decode(data))
+
+
+def test_pil_progressive_streams_are_never_smoothed():
+    """libjpeg-turbo block-smooths a progressive image only where a
+    component's low AC coefficients stay unrefined; PIL's scripts refine
+    every coefficient to Al = 0, so none of its streams reaches it. A
+    stream cut before its refinement scans would, and raises."""
+    from torch_jpeg_forms import truncated_progression
+
+    rng = np.random.default_rng(8)
+    img = rng.integers(0, 256, (40, 56, 3), dtype=np.uint8)
+    for sub in ("444", "420"):
+        data = encode(img, quality=75, subsampling=SUBSAMPLING[sub], progressive=True)
+        jpeg.parse_jpeg(data)  # does not raise
+        with pytest.raises(NotImplementedError, match="block-smooths.*ROADMAP Queue 1 item"):
+            jpeg.parse_jpeg(truncated_progression(data, 3))
+
+
+@pytest.mark.parametrize("kind", ["arithmetic", "lossless", "gif_file"])
+def test_unsupported_streams_raise(kind):
+    from rapiddoc_tpu_torch.pdfio.png import decode_image
+
+    img = fixture_pages()[0][:64, :64]
+    data = encode(img, quality=90)
+    at = data.index(b"\xff\xc0")
+    if kind == "gif_file":
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="GIF")
+        with pytest.raises(NotImplementedError, match="GIF images.*ROADMAP Queue 1 item"):
+            decode_image(buf.getvalue())
+        return
+    marker = b"\xff\xc9" if kind == "arithmetic" else b"\xff\xc3"
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        plain_decode(data)
+        plain_decode(data[:at] + marker + data[at + 2:])
 
 
 def test_idct_range_limit_wraps_as_libjpeg():

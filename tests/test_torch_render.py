@@ -14,9 +14,10 @@ a soft mask and Type3 glyphs (an outline and an inline image mask); and
 on text drawn through FreeType with an unhinted fallback font: Type1
 Helvetica and a Type3 glyph without a CharProc (both the fallback), an
 embedded TrueType font upright and turned by 30 and 90 degrees.
-What it does not draw yet must raise NotImplementedError: a face of
-bitmap strikes, text that needs complex shaping, a decode array, a
-shading and a pattern fill.
+Shadings, pattern fills and decode arrays (which raised before they were
+ported) equal the JAX package's render. What it does not draw yet must
+raise NotImplementedError: a face of bitmap strikes, text that needs
+complex shaping, a JPX image and an arithmetic-coded JPEG.
 """
 import sys
 import zlib
@@ -244,9 +245,37 @@ def test_text_cases_equal_jax(name, dpi, unhinted_fallback):
     assert boxes == jboxes
 
 
+def _image_obj(filt: bytes, data: bytes) -> bytes:
+    return (b"<< /Type /XObject /Subtype /Image /Width 16 /Height 16 /ColorSpace /DeviceRGB "
+            b"/BitsPerComponent 8 /Filter " + filt + b" /Length %d >>\nstream\n" % len(data)
+            + data + b"\nendstream")
+
+
+def _arithmetic_jpeg() -> bytes:
+    """A baseline JPEG whose frame marker says arithmetic coding (SOF9)."""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(RGB[:16, :16]).save(buf, format="JPEG")
+    data = buf.getvalue()
+    at = data.index(b"\xff\xc0")
+    return data[:at] + b"\xff\xc9" + data[at + 2:]
+
+
+_OTHER_IMAGE = b"/XObject << /Im0 5 0 R /Im1 20 0 R >>"
 UNSUPPORTED = {
     "bitmap_strike_face": (b"BT /BM 24 Tf 50 150 Td (Hello) Tj ET", {"text": True}),
     "complex_shaping": (b"BT /AR 24 Tf 50 150 Td (AB) Tj ET", {"text": True}),
+    "jpx_image": (b"q 100 0 0 100 40 50 cm /Im1 Do Q",
+                  {"objs": {20: _image_obj(b"/JPXDecode", b"\x00\x00\x00\x0cjP  \r\n\x87\n")}}),
+    "arithmetic_jpeg": (b"q 100 0 0 100 40 50 cm /Im1 Do Q",
+                        {"objs": {20: _image_obj(b"/DCTDecode", _arithmetic_jpeg())}}),
+}
+# forms that raised before the shadings, patterns and decode arrays were
+# ported; now equal to the JAX package's render
+ONCE_UNSUPPORTED = {
     "decode_array": (b"q 300 0 0 200 40 50 cm /Im0 Do Q", {"extra": b"/Decode [1 0 1 0 1 0] "}),
     "shading": (b"q 10 10 200 100 re W n /Sh0 sh Q",
                 {"res": b"/Shading << /Sh0 " + _SHADING + b" >>"}),
@@ -256,6 +285,15 @@ UNSUPPORTED = {
 }
 
 
+@pytest.mark.parametrize("name", list(ONCE_UNSUPPORTED))
+@pytest.mark.parametrize("dpi", [200, 72])
+def test_once_unsupported_content_equals_jax(name, dpi):
+    content, kw = ONCE_UNSUPPORTED[name]
+    got, want, boxes, jboxes, _ = both(image_pdf(content, RGB, **kw), dpi)
+    assert np.array_equal(got, want)
+    assert boxes == jboxes
+
+
 @pytest.mark.parametrize("name", list(UNSUPPORTED))
 def test_content_not_ported_raises(name):
     content, kw = UNSUPPORTED[name]
@@ -263,6 +301,9 @@ def test_content_not_ported_raises(name):
     if kw.pop("text", False):
         kw = dict(kw, fonts=TEXT_FONTS, objs=_text_font_objs())
     page = open_pdf(image_pdf(content, RGB, **kw)).get_page(0)
+    if "objs" in kw and 20 in kw["objs"]:  # an image XObject /Im1 beside /Im0
+        page = open_pdf(image_pdf(content, RGB, **kw).replace(
+            b"/XObject << /Im0 5 0 R >>", _OTHER_IMAGE)).get_page(0)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         render_page_full(page, dpi=200, with_text=False)
 
