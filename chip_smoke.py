@@ -109,7 +109,12 @@ per shape or run):
           extract_original_image's payloads equal to the golden; bf16
           with the int8 head over the three in one parse_batch: pages/s,
           K1's launches held to the rec dispatches, K2's to the decode
-          steps
+          steps; then a BMP, a GIF, an LZW and a G4 TIFF, a 16-bit and an
+          interlaced PNG and a float32 and a uint16 array: rasters and
+          PDFs equal to the JAX package's, host ms a page of each
+          decoder, and one fp32 parse_batch of the eight (Markdown and
+          content list equal to the golden, K1's launches held to the rec
+          dispatches)
   vector  born-digital pages (vector paths, clips, masks, Type3 glyphs)
           rendered on the host, each raster's sha256 equal to the
           golden's at 200 and 72 dpi; fp32 "ocr" (int8 head off and on)
@@ -132,6 +137,12 @@ per shape or run):
           a temporary models dir (Markdown and content list equal to the
           JAX package's, K1's launches held to the rec dispatches) and on
           suffix-less bytes (the sniff and the Markdown equal)
+  codecs  JBIG2, CCITT, progressive and CMYK JPEG, raw colour spaces,
+          shadings and patterns (see ``phase_codecs``)
+  office  Office documents through RapidDoc on the card: a docx, a pptx,
+          an xlsx and a zero-byte docx in "url" and "data_uri" modes,
+          Markdown, content list and middle json equal to the JAX
+          package's golden; host-only, its seconds reported
 Then a timing line (seconds by phase), a ``{"kernels": [...]}`` line,
 the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
@@ -2366,8 +2377,127 @@ def phase_image_inputs(card: str) -> dict:
         check(counts[name] > 0, f"image_inputs launched the {name} kernel no time")
         check(counts[name] == counts[per],
               f"image_inputs: {counts[name]} {name} launches for {counts[per]} {per}")
+    counts["image_files"] = image_files(card)
     clean_env()
     return counts
+
+
+# The thirteenth slice's image inputs: one page of each file format the
+# port decodes (tests/test_torch_image_files.py writes them with PIL and
+# the golden with the JAX package) and two arrays made from it.
+IMAGE_FILES = {"bmp": "image_files_page.bmp", "gif": "image_files_page.gif",
+               "tiff_lzw": "image_files_page_lzw.tif", "tiff_g4": "image_files_page_g4.tif",
+               "png16": "image_files_page16.png", "png_adam7": "image_files_page_adam7.png"}
+IMAGE_DECODE_RUNS = 5
+
+
+def image_file_inputs() -> dict:
+    """{case: file bytes or array}: the committed pages, and a float32 and
+    a uint16 array from the interlaced PNG's grey (values past 0..255 at
+    both ends), as tests/test_torch_image_files.py makes them."""
+    import numpy as np
+
+    from rapiddoc_tpu_torch.pdfio.png import decode_png
+
+    out = {k: asset(name).read_bytes() for k, name in IMAGE_FILES.items()}
+    rgb = decode_png(out["png_adam7"])
+    grey = (rgb.astype(np.int32) @ np.array([299, 587, 114]) // 1000).astype(np.uint8)
+    out["float32"] = grey.astype(np.float32) * 1.25 - 20.0
+    out["uint16"] = (grey.astype(np.uint16) * 3).astype(np.uint16)
+    return out
+
+
+def image_files(card: str) -> int:
+    """BMP, GIF, LZW and G4 TIFF, 16-bit and interlaced PNG files and
+    float32 and uint16 arrays: each page's raster (the pixels
+    images_to_pdf embeds) and PDF sha256 equal to the JAX package's
+    golden, host ms a page of each decoder; then one parse_batch of the
+    eight in fp32 on the card (OCR, fallback layout): Markdown and content
+    list equal to the golden, K1's launches held to the rec dispatches.
+    Returns K1's launches."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from rapiddoc_tpu_torch import RapidDoc
+    from rapiddoc_tpu_torch.pdfio.writer import _pixels, images_to_pdf
+
+    golden = json.loads(asset("image_files_golden.json").read_text())
+    inputs = image_file_inputs()
+    decode_ms = {}
+    for k, item in inputs.items():
+        pixels = _pixels(item)
+        check(hashlib.sha256(np.ascontiguousarray(pixels).tobytes()).hexdigest()
+              == golden["raster_sha256"][k], f"image_files: {k}'s raster differs from the golden's")
+        pdf = images_to_pdf([item], dpi=golden["dpi"])
+        check(hashlib.sha256(pdf).hexdigest() == golden["pdf_sha256"][k],
+              f"image_files: {k}'s PDF differs from the JAX package's")
+        decode_ms[k] = host_ms(lambda: _pixels(item), IMAGE_DECODE_RUNS)
+    clean_env(**golden["config"])
+    rapid = RapidDoc(device="cuda", dtype=torch.float32, parse_method="ocr")
+    items = list(inputs.values())
+    rapid(items[:1])  # builds the models
+    torch.cuda.synchronize()
+    with LaunchCount(rapid._stack().analyzer.ocr.recognizer) as counted:
+        t0 = time.perf_counter()
+        outs = rapid(items)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = counted.check("image_files fp32")
+    for (k, _), out in zip(inputs.items(), outs):
+        want = golden["parse"][k]
+        check(out.markdown == want["markdown"], f"image_files fp32: {k}'s Markdown differs")
+        check(json.loads(json.dumps(out.content_list_json)) == want["content_list"],
+              f"image_files fp32: {k}'s content list differs")
+    emit({"phase": "image_inputs", "path": "image_files", "dtype": "fp32", "card": card,
+          "inputs": list(inputs), "rasters_equal": True, "pdfs_equal": True,
+          "parses_equal": True, "decode_host_ms": decode_ms, "pages": len(outs),
+          "parse_batch_s": wall, "launches": launches})
+    return launches["ctc_head"]
+
+
+# ------------------------------------------- the thirteenth slice's Office
+
+def office_summary(out) -> dict:
+    """What the Office golden holds: Markdown, content list and middle
+    json through JSON, and each payload's size."""
+    return json.loads(json.dumps({
+        "markdown": out.markdown, "content_list": out.content_list_json,
+        "middle_json": out.middle_json,
+        "images": {k: len(v) for k, v in sorted(out.images.items())},
+    }, default=str))
+
+
+def phase_office(card: str) -> None:
+    """Office documents through RapidDoc(device="cuda"): the committed
+    docx, pptx and xlsx (tests/test_torch_office.py writes them from
+    seeds, and the golden with the JAX package) and a zero-byte docx, in
+    "url" and "data_uri" modes, each equal to the golden. The path runs
+    on the host and launches no kernel; it reports its seconds."""
+    import tempfile
+
+    from rapiddoc_tpu_torch import RapidDoc
+
+    t0 = time.perf_counter()
+    golden = json.loads(asset("office_smoke_golden.json").read_text())
+    got, ms = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        empty = Path(tmp) / "empty.docx"
+        empty.write_bytes(b"")
+        paths = {kind: asset(f"office_smoke.{kind}") for kind in ("docx", "pptx", "xlsx")}
+        paths["empty_docx"] = empty
+        for mode in ("url", "data_uri"):
+            rapid = RapidDoc(device="cuda", image_output_mode=mode)
+            for kind, path in paths.items():
+                t1 = time.perf_counter()
+                got[f"{kind}_{mode}"] = office_summary(rapid(path))
+                ms[f"{kind}_{mode}"] = (time.perf_counter() - t1) * 1e3
+    check(set(got) == set(golden), "office: the documents differ from the golden's")
+    for key, want in golden.items():
+        check(got[key] == want, f"office: {key}'s output differs from the golden's")
+    emit({"phase": "office", "card": card, "documents": len(got), "outputs_equal": True,
+          "host_ms": ms, "phase_seconds": time.perf_counter() - t0})
 
 
 # ------------------------------------------------- the ninth slice's path
@@ -3414,6 +3544,7 @@ def main() -> int:
         text_counts = timed("text", phase_text, card)
         onnx_launches = timed("onnx", phase_onnx, card)
         codec_launches = timed("codecs", phase_codecs, card)
+        timed("office", phase_office, card)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3441,6 +3572,7 @@ def main() -> int:
                              **{f"ocr_family_{k}": v for k, v in family.items()},
                              **table_ocr, **orientation, **seal_counts,
                              "image_inputs": image_counts["ctc_head"],
+                             "image_files": image_counts["image_files"],
                              "vector": vector_counts["ctc_head"],
                              "text": text_counts["ctc_head"], "onnx": onnx_launches,
                              "codecs": codec_launches},

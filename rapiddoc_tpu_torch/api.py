@@ -1,8 +1,8 @@
-"""RapidDoc facade of the port: the public parse API for PDF bytes.
+"""RapidDoc facade of the port: the public parse API for documents and images.
 
 Port of ``rapiddoc_tpu/api.py`` (``RapidDoc.__call__``, ``_parse_single``,
-``_parse_pipeline``, ``ModelStack``, ``RapidDocOutput``,
-``_embed_data_uris``) for the path the port runs so far: PDF documents
+``_parse_pipeline``, ``parse_batch``, ``ModelStack``, ``RapidDocOutput``,
+``_embed_data_uris``, ``_legacy_office_to_modern``): PDF documents
 in ``parse_method="ocr"`` (or "txt" / "auto") with the layout model (the
 demo checkpoint under ``RAPIDDOC_DEMO_LAYOUT=1``, else the fallback
 layout), OCR, the formula recognizer and the table recognizer
@@ -22,21 +22,28 @@ outputs are the JAX package's; the port adds its ``device`` (the card by
 default) and ``dtype`` (bf16 by default) arguments. Windows render
 serially (the JAX package's process pool renders the same pages).
 
-Image inputs (a PNG or JPEG path or bytes, or a uint8 (H, W) or (H, W,
-3|4) array) become a one-page PDF through ``pdfio.writer.images_to_pdf``
-at the render dpi, as in the JAX package (an array is embedded directly:
-the JAX package's PNG round trip is lossless). ``parse_batch`` (and a
-call with several documents and no output dir or overrides) batches
-pages across documents, with a ``DeferredAR`` across its chunks.
+Image inputs (a PNG, JPEG, BMP, GIF or TIFF path or bytes, an array of
+any type ``Image.fromarray`` takes, or an image object with
+``__array_interface__`` and a PIL-style ``mode``) become a one-page PDF
+through ``pdfio.writer.images_to_pdf`` at the render dpi, with the
+pixels the JAX package's PIL gives (an array or image object is
+embedded directly: the JAX package's PNG round trip is lossless).
+``parse_batch`` (and a call with several documents and no output dir or
+overrides) batches pages across documents, with a ``DeferredAR`` across
+its chunks; Office slots take no batch slot.
 ``image_config={"extract_original_image": True}`` keeps an embedded
 image's own pixels for an image span that matches it.
 
+Office documents (``.docx``, ``.pptx``, ``.xlsx`` by suffix or zip
+sniff) go through the model-free ``office/`` path, as in the JAX
+package; ``.doc``, ``.ppt`` and ``.xls`` are converted first by
+LibreOffice's ``soffice`` on ``PATH`` (``_legacy_office_to_modern``).
 Bytes without a suffix that do not start with ``%PDF`` and are no
 PNG/JPEG/GIF/WEBP/Office file are sniffed by Magika
 (``utils/sniff.guess_suffix_by_bytes``) on the facade's device and routed
-as the JAX package routes them: an image through the PDF writer,
-anything but Office parsed as a PDF. Office and URL inputs, and the
-image formats and PIL images the port does not decode, raise
+as the JAX package routes them: Office documents to their path, an
+image through the PDF writer, anything else parsed as a PDF. URL
+inputs, and the image formats the port does not decode, raise
 NotImplementedError naming their ROADMAP items. A page whose page object
 is broken renders as a blank page, as in the JAX package; anything the
 port's renderer cannot draw raises, and so
@@ -70,6 +77,7 @@ from .config import (
 from .data.io import DataWriter, FanoutDataWriter, FileBasedDataWriter, MemoryDataWriter
 from .pdfio.images import to_rgb, xobject_to_array
 from .pdfio.placements import original_image_streams
+from .pdfio.pil_modes import is_image_object
 from .pdfio.writer import images_to_pdf
 from .pipeline.middle import build_page_infos, finalize_middle_json
 from .pipeline.mkcontent import union_make
@@ -243,7 +251,7 @@ class RapidDoc:
             inputs = bytes(inputs)
         # an array dispatches before the iterable branch (an HxWx3 array
         # is iterable row-wise)
-        if isinstance(inputs, (str, bytes, Path, np.ndarray)):
+        if isinstance(inputs, (str, bytes, Path, np.ndarray)) or is_image_object(inputs):
             return self._parse_single(inputs, output_dir, **overrides)
         if output_dir is None and not overrides:
             # several documents batch their pages across documents
@@ -253,8 +261,19 @@ class RapidDoc:
     def _parse_single(
         self, item: str | bytes | Path | np.ndarray, output_dir: str | Path | None, **overrides
     ) -> RapidDocOutput:
-        pdf_bytes, name = self._normalize_input(item)
+        pdf_bytes, name, kind = self._normalize_input(item)
+        if kind == "office":
+            return self._parse_office(pdf_bytes, name)
         return self._parse_pipeline(pdf_bytes, name, output_dir, **overrides)
+
+    def _parse_office(self, data: bytes, name: str) -> RapidDocOutput:
+        """An Office document through its model-free path (``office/``)."""
+        from .office.analyze import office_parse
+
+        return office_parse(
+            data, name, make_md_mode=self.make_md_mode,
+            image_output_mode=self.image_output_mode,
+        )
 
     # ------------------------------------------------------------ pipeline
 
@@ -440,20 +459,25 @@ class RapidDoc:
         images apply to the single-document path only, as in the JAX
         package."""
         items = list(inputs)
-        docs: list[tuple[bytes, str]] = []  # (pdf_bytes, parse mode)
-        for item in items:
-            pdf_bytes, _ = self._normalize_input(item)
+        outputs: list[RapidDocOutput | None] = [None] * len(items)
+        docs: list[tuple[int, bytes, str]] = []  # (slot, pdf_bytes, parse mode)
+        for slot, item in enumerate(items):
+            pdf_bytes, name, kind = self._normalize_input(item)
+            if kind == "office":
+                # Office documents take their model-free path one by one
+                outputs[slot] = self._parse_office(pdf_bytes, name)
+                continue
             mode = self.parse_method
             if mode == "auto":
                 mode = pdfio.classify_pdf(pdf_bytes)
-            docs.append((pdf_bytes, mode))
+            docs.append((slot, pdf_bytes, mode))
         if not docs:
-            return []
+            return outputs
         stack = self._stack()
         dpi = get_pdf_render_dpi()
         scale = dpi / 72.0
         super_batch = max(self.pdf_pages_batch, env_int("MIN_BATCH_INFERENCE_SIZE", 384))
-        opened = [(pdfio.open_pdf(b), mode) for b, mode in docs]
+        opened = [(pdfio.open_pdf(b), mode) for _, b, mode in docs]
         tasks = [(k, page_i) for k, (doc, _) in enumerate(opened) for page_i in range(len(doc))]
         per_doc: dict[int, dict[int, tuple]] = {k: {} for k in range(len(opened))}
         # assembly comes after every chunk, so no window gating is needed
@@ -489,7 +513,6 @@ class RapidDoc:
         if batch_deferred is not None:
             stack.analyzer.flush_deferred(batch_deferred)
 
-        outputs = []
         for k, (doc, mode) in enumerate(opened):
             pages = [per_doc[k][i] for i in sorted(per_doc[k])]
             mem_writer = MemoryDataWriter(self.image_dir_name)
@@ -499,14 +522,14 @@ class RapidDoc:
                 parse_mode=mode, image_writer=mem_writer,
             ), mode)
             markdown, content_list, images = self._outputs(middle_json, mem_writer)
-            outputs.append(RapidDocOutput(
+            outputs[docs[k][0]] = RapidDocOutput(
                 markdown=markdown,
                 images=images,
                 middle_json=middle_json,
                 content_list_json=content_list,
                 model_json=[p[0] for p in pages],
                 stage_report=GLOBAL_TRACER.report(),
-            ))
+            )
         return outputs
 
     def _outputs(self, middle_json: dict, mem_writer: MemoryDataWriter) -> tuple[str, list, dict]:
@@ -555,12 +578,13 @@ class RapidDoc:
 
     # --------------------------------------------------------------- input
 
-    def _normalize_input(self, item: str | bytes | Path | np.ndarray) -> tuple[bytes, str]:
-        """(pdf_bytes, doc_name): a PDF as it is, an image file or array as
-        a one-page PDF at the render dpi; raises for the inputs the JAX
-        package routes to its office path or fetches."""
-        if isinstance(item, np.ndarray):
-            return images_to_pdf([item], dpi=get_pdf_render_dpi()), "image"
+    def _normalize_input(self, item) -> tuple[bytes, str, str]:
+        """(bytes, doc_name, kind): kind "pdf" for a PDF as it is and for an
+        image file, array or image object as a one-page PDF at the render
+        dpi, kind "office" for an Office document's bytes (a legacy one
+        converted by LibreOffice first); URLs raise."""
+        if isinstance(item, np.ndarray) or is_image_object(item):
+            return images_to_pdf([item], dpi=get_pdf_render_dpi()), "image", "pdf"
         if isinstance(item, (str, Path)):
             s = str(item)
             if s.startswith(("http://", "https://")):
@@ -573,21 +597,25 @@ class RapidDoc:
         stem, suffix = os.path.splitext(name)
         suffix = suffix.lower()
         stem = stem or "document"
-        if suffix in office_suffixes + old_office_suffixes or _sniff_office(data):
-            raise not_ported("Office documents", "host_families")
+        if suffix in office_suffixes or _sniff_office(data):
+            return data, stem, "office"
+        if suffix in old_office_suffixes:
+            return _legacy_office_to_modern(data, suffix), stem, "office"
         if suffix in image_suffixes or _sniff_image(data):
-            return images_to_pdf([data], dpi=get_pdf_render_dpi()), stem
+            return images_to_pdf([data], dpi=get_pdf_render_dpi()), stem, "pdf"
         known = image_suffixes + office_suffixes + old_office_suffixes + (".pdf",)
         if suffix not in known and data[:4] != b"%PDF":
             # extensionless input: content-based id (Magika through the ONNX
             # interpreter on the facade's device), routed as the JAX package
             # routes it; anything else is parsed as a PDF
             guessed = guess_suffix_by_bytes(data, device=self.device)
-            if guessed in ("docx", "pptx", "xlsx", "doc", "ppt", "xls"):
-                raise not_ported("Office documents", "host_families")
+            if guessed in ("docx", "pptx", "xlsx"):
+                return data, stem, "office"
+            if guessed in ("doc", "ppt", "xls"):
+                return _legacy_office_to_modern(data, f".{guessed}"), stem, "office"
             if guessed in ("png", "jpg", "gif", "webp", "bmp", "tif"):
-                return images_to_pdf([data], dpi=get_pdf_render_dpi()), stem
-        return data, stem
+                return images_to_pdf([data], dpi=get_pdf_render_dpi()), stem, "pdf"
+        return data, stem, "pdf"
 
 
 def _sniff_image(data: bytes) -> bool:
@@ -601,6 +629,29 @@ def _sniff_office(data: bytes) -> bool:
         return False
     head = data[:4096]
     return b"word/" in head or b"ppt/" in head or b"xl/" in head
+
+
+def _legacy_office_to_modern(data: bytes, suffix: str) -> bytes:
+    """doc/ppt/xls -> docx/pptx/xlsx through LibreOffice (``soffice`` or
+    ``libreoffice`` on ``PATH``), as the JAX package converts them."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    soffice = shutil.which("soffice") or shutil.which("libreoffice")
+    if soffice is None:
+        raise RuntimeError(
+            "legacy office formats require LibreOffice (soffice) on PATH"
+        )
+    target = {".doc": "docx", ".ppt": "pptx", ".xls": "xlsx"}[suffix]
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / f"input{suffix}"
+        src.write_bytes(data)
+        subprocess.run(
+            [soffice, "--headless", "--convert-to", target, "--outdir", tmp, str(src)],
+            check=True, capture_output=True, timeout=300,
+        )
+        return (Path(tmp) / f"input.{target}").read_bytes()
 
 
 def _collect_original_images(doc, n_pages: int, first_page: int = 0) -> list:

@@ -44,6 +44,8 @@ import ctypes
 
 import numpy as np
 
+from .pil_modes import check_size
+
 
 class CcittError(ValueError):
     """A stream PIL's libtiff refuses."""
@@ -550,16 +552,23 @@ def decode_bits_compiled(data: bytes, width: int, height: int, k: int) -> tuple[
     return bits, rc
 
 
+def decode_bits(data: bytes, width: int, height: int, k: int) -> tuple[np.ndarray, int]:
+    """``decode_bits_compiled`` where a card is present
+    (``ops.build.host_compiled``), with no fallback, else
+    ``decode_bits_plain``."""
+    from ..ops import build
+
+    if build.host_compiled():
+        return decode_bits_compiled(data, width, height, k)
+    return decode_bits_plain(data, width, height, k)
+
+
 def decode_ccitt(data: bytes, width: int, height: int, parms: dict) -> np.ndarray:
     """A /CCITTFaxDecode stream as the JAX package's PIL image in mode L:
     (height, width) uint8 of 0 and 255."""
-    from ..ops import build
-
     k = int(parms.get("K", 0) or 0)
     if width <= 0 or height <= 0 or not data:
         raise CcittError("empty strip")
-    if build.host_compiled():
-        bits, _ = decode_bits_compiled(data, width, height, k)
-    else:
-        bits, _ = decode_bits_plain(data, width, height, k)
+    check_size(width, height)  # PIL opens the strip as a TIFF
+    bits, _ = decode_bits(data, width, height, k)
     return to_l(bits, bool(parms.get("BlackIs1", False)))

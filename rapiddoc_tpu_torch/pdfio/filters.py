@@ -113,6 +113,7 @@ def lzw_decode(data: bytes, params: dict) -> bytes:
         while nbits >= code_len:
             nbits -= code_len
             code = (bitbuf >> nbits) & ((1 << code_len) - 1)
+            bitbuf &= (1 << nbits) - 1  # keep the buffer short: O(1) a code
             if code == 256:  # clear
                 table = [bytes([i]) for i in range(256)] + [b"", b""]
                 code_len = 9

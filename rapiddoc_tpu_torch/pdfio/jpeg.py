@@ -40,7 +40,8 @@ end every coefficient at Al = 0 and never reach it, and a stream that
 would raises NotImplementedError. So do arithmetic-coded, lossless,
 hierarchical and 12-bit JPEGs. Corrupt entropy data raises JpegError
 where libjpeg would warn and carry on, and so does what PIL refuses (two
-components, fractional sampling factors, a bad progression).
+components, fractional sampling factors, a bad progression, a frame past
+its decompression bomb limit, ``pil_modes.check_size``).
 """
 from __future__ import annotations
 
@@ -51,6 +52,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..utils.unported import not_ported
+from .pil_modes import check_size
 
 
 class JpegError(ValueError):
@@ -219,6 +221,7 @@ def parse_jpeg(data: bytes) -> JpegStream:
                                seg[8 + 3 * i]) for i in range(seg[5])]
             if width == 0 or not comps or any(not (1 <= c.h <= 4 and 1 <= c.v <= 4) for c in comps):
                 raise JpegError("bad frame header")
+            check_size(width, height)
             frame = JpegStream(data, width, height, comps,
                                hmax=max(c.h for c in comps), vmax=max(c.v for c in comps),
                                progressive=marker == 0xC2)

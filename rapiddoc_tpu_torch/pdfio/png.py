@@ -8,20 +8,24 @@ mode ``L``, else (H, W, 3). PIL's modes by colour type and bit depth:
 
 - 0 (grey): 1 bit is mode ``1`` (0 and 255 in RGB); 2 and 4 bits are
   ``L`` with each sample scaled to 0..255 (times 85 and 17); 8 bits ``L``;
-- 2 (RGB), 8 bits: ``RGB``;
+- 0 (grey), 16 bits: ``I;16``;
+- 2 (RGB), 8 and 16 bits: ``RGB``;
 - 3 (palette), 1, 2, 4 or 8 bits: ``P``, looked up in ``PLTE`` (an index
   past the palette's end reads black);
-- 4 (grey and alpha), 8 bits: ``LA``, the grey repeated in RGB;
-- 6 (RGBA), 8 bits: ``RGBA``, the alpha dropped (``convert("RGB")``
-  does not blend).
+- 4 (grey and alpha), 8 bits: ``LA``, the grey repeated in RGB (16
+  bits: ``RGBA``, the same);
+- 6 (RGBA), 8 and 16 bits: ``RGBA``, the alpha dropped
+  (``convert("RGB")`` does not blend).
 
 A ``tRNS`` chunk changes none of these. Rows are unfiltered for all five
 filter types (None, Sub, Up, Average, Paeth) along anti-diagonals of
 whole pixels (``unfilter``).
 
-16-bit samples and Adam7 interlacing raise NotImplementedError naming
-ROADMAP item 12 (its part 12d), as do other image formats (see
-``decode_image``).
+16-bit samples keep their high byte (16-bit grey opens as ``I;16``,
+which ``convert("RGB")`` clips to 0..255; 16-bit grey and alpha opens
+as ``RGBA``); Adam7 interlacing unfilters each pass as an image of its
+own and scatters it. ``png_mode`` returns PIL's mode and samples, which
+``pdfio.pil_modes.embed_pixels`` converts.
 """
 from __future__ import annotations
 
@@ -31,7 +35,11 @@ import zlib
 import numpy as np
 
 from ..utils.unported import not_ported
+from .bmp import decode_bmp
+from .gif import decode_gif
 from .jpeg import cmyk_to_rgb_pil, decode_jpeg
+from .pil_modes import check_size, embed_pixels, unpack_bits
+from .tiff import decode_tiff
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -82,9 +90,30 @@ def unfilter(raw: np.ndarray, height: int, row_bytes: int, bpp: int) -> np.ndarr
     return out[1 + y, 2 + y + x].reshape(height, row_bytes).astype(np.uint8)
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W) grey or (H, W, 3) RGB uint8, as described in the
-    module docstring."""
+# PIL's mode for (bit depth, colour type)
+_MODES = {(1, 0): "1", (2, 0): "L", (4, 0): "L", (8, 0): "L", (16, 0): "I;16",
+          (8, 2): "RGB", (16, 2): "RGB", (1, 3): "P", (2, 3): "P", (4, 3): "P",
+          (8, 3): "P", (8, 4): "LA", (16, 4): "RGBA", (8, 6): "RGBA", (16, 6): "RGBA"}
+# Adam7: (x0, y0, dx, dy) of each pass
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _unpack(samples: np.ndarray, height: int, width: int, channels: int,
+            depth: int) -> np.ndarray:
+    """(height, row_bytes) unfiltered bytes -> (height, width, channels)
+    sample values: uint8 up to 8 bits, big-endian uint16 at 16."""
+    if depth == 16:
+        return (samples[:, : width * channels * 2].reshape(height, width * channels, 2)
+                .view(">u2")[..., 0].astype(np.uint16).reshape(height, width, channels))
+    if depth < 8:
+        samples = unpack_bits(samples, width, depth)
+    return samples[:, : width * channels].reshape(height, width, channels)
+
+
+def png_mode(data: bytes) -> tuple[str, np.ndarray, np.ndarray | None]:
+    """PNG bytes -> (PIL's mode, its samples, the palette or None): (H, W)
+    for one channel, else (H, W, C)."""
     if not data.startswith(SIGNATURE):
         raise ValueError("not a PNG")
     header = None
@@ -100,42 +129,47 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("a PNG without IHDR")
     width, height, depth, ctype, _, _, interlace = header
+    check_size(width, height)
     if ctype not in _CHANNELS:
         raise ValueError(f"PNG colour type {ctype}")
-    if depth == 16:
-        raise not_ported("16-bit PNG images", "pdfio")
-    if interlace:
-        raise not_ported("interlaced PNG images", "pdfio")
-    if depth != 8 and ctype not in (0, 3):
+    if (depth, ctype) not in _MODES:
         raise ValueError(f"PNG colour type {ctype} at {depth} bits")
+    mode = _MODES[depth, ctype]
     channels = _CHANNELS[ctype]
-    row_bytes = (width * channels * depth + 7) // 8
     bpp = max(1, channels * depth // 8)
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    samples = unfilter(raw, height, row_bytes, bpp)
-    if depth < 8:
-        bits = np.unpackbits(samples, axis=1)
-        values = bits.reshape(height, -1, depth)
-        weights = 1 << np.arange(depth - 1, -1, -1)
-        samples = (values * weights).sum(-1)[:, :width].astype(np.uint8)
-    else:
-        samples = samples.reshape(height, width, channels)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    out = np.zeros((height, width, channels), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in passes:
+        pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        row_bytes = (pw * channels * depth + 7) // 8
+        size = ph * (row_bytes + 1)
+        samples = unfilter(raw[pos:pos + size], ph, row_bytes, bpp)
+        pos += size
+        out[y0::dy, x0::dx] = _unpack(samples, ph, pw, channels, depth)
     if ctype == 0:
-        grey = samples.reshape(height, width)
-        if depth < 8:
+        grey = out[..., 0]
+        if depth in (2, 4):  # PIL's L;2 and L;4 scale to 0..255
             grey = (grey.astype(np.int64) * (255 // ((1 << depth) - 1))).astype(np.uint8)
-        if depth == 1:  # mode "1": RGB
-            return np.repeat(grey[..., None], 3, axis=2)
-        return grey
+        return mode, grey, None
     if ctype == 3:
         if palette is None:
             raise ValueError("a palette PNG without PLTE")
-        lut = np.zeros((256, 3), np.uint8)
-        lut[: len(palette)] = palette[:256]
-        return lut[samples.reshape(height, width)]
-    if ctype == 4:
-        return np.repeat(samples[..., :1], 3, axis=2)
-    return np.ascontiguousarray(samples[..., :3])
+        return mode, out[..., 0], palette
+    if depth == 16:  # PIL keeps the high byte of each sample
+        out = (out >> 8).astype(np.uint8)
+    if ctype == 4 and depth == 16:  # LA;16B unpacks into RGBA
+        out = np.concatenate([np.repeat(out[..., :1], 3, axis=2), out[..., 1:]], axis=2)
+    return mode, out, None
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W) grey or (H, W, 3) RGB uint8, as described in the
+    module docstring."""
+    return embed_pixels(*png_mode(data))
 
 
 def encode_png(img: np.ndarray) -> bytes:
@@ -156,18 +190,22 @@ def encode_png(img: np.ndarray) -> bytes:
 
 def decode_image(data: bytes) -> np.ndarray:
     """An image file's pixels as ``images_to_pdf`` takes them from PIL:
-    (H, W) for mode ``L``, else (H, W, 3) RGB. PNG (``decode_png``) and
-    the JPEGs ``pdfio.jpeg`` decodes (a CMYK one through Pillow's
-    ``convert("RGB")``); GIF, WEBP, BMP, TIFF and the rest raise
-    NotImplementedError naming ROADMAP item 12 (12d)."""
+    (H, W) for mode ``L``, else (H, W, 3) RGB. PNG (``decode_png``), the
+    JPEGs ``pdfio.jpeg`` decodes (a CMYK one through Pillow's
+    ``convert("RGB")``), BMP (``pdfio.bmp``), GIF's first frame
+    (``pdfio.gif``) and TIFF's first page (``pdfio.tiff``); WEBP and the
+    rest raise NotImplementedError naming ROADMAP item 12f."""
     if data.startswith(SIGNATURE):
         return decode_png(data)
     if data[:3] == b"\xff\xd8\xff":
         img = decode_jpeg(data)
         return cmyk_to_rgb_pil(img) if img.ndim == 3 and img.shape[2] == 4 else img
-    kind = {b"GIF8": "GIF", b"RIFF": "WEBP", b"BM": "BMP", b"II*\x00": "TIFF",
-            b"MM\x00*": "TIFF"}
-    for magic, name in kind.items():
-        if data.startswith(magic):
-            raise not_ported(f"{name} images", "pdfio")
-    raise not_ported("image files other than PNG and JPEG", "pdfio")
+    if data[:2] == b"BM":
+        return decode_bmp(data)
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return decode_gif(data)
+    if data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
+        return decode_tiff(data)
+    if data[:4] == b"RIFF":
+        raise not_ported("WEBP images", "pdfio")
+    raise not_ported("image files other than PNG, JPEG, BMP, GIF and TIFF", "pdfio")

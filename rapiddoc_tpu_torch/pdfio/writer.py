@@ -15,10 +15,10 @@ from typing import Any, Iterable
 
 import numpy as np
 
-from ..utils.unported import not_ported
 from .cos import Name, Ref, Stream
 from .document import PdfDocument
 from .jpeg_encode import encode_jpeg
+from .pil_modes import array_pixels, is_image_object, object_pixels
 from .png import decode_image
 
 PDF_JPEG_QUALITY = 92
@@ -121,18 +121,14 @@ class PdfWriter:
         return bytes(out)
 
 
-def _pixels(img: bytes | np.ndarray) -> np.ndarray:
-    """(H, W) grey or (H, W, 3) RGB uint8 pixels of an image file or array."""
+def _pixels(img) -> np.ndarray:
+    """(H, W) grey or (H, W, 3) RGB uint8 pixels of an image file, array
+    or image object, as the JAX package's ``images_to_pdf`` embeds them."""
     if isinstance(img, (bytes, bytearray, memoryview)):
         return decode_image(bytes(img))
-    arr = np.asarray(img)
-    if arr.dtype != np.uint8:
-        raise not_ported(f"image arrays of dtype {arr.dtype}", "pdfio")
-    if arr.ndim == 3 and arr.shape[2] in (3, 4):
-        return np.ascontiguousarray(arr[..., :3])
-    if arr.ndim != 2:
-        raise ValueError(f"an image array is (H, W) or (H, W, 3|4), not {arr.shape}")
-    return arr
+    if is_image_object(img):
+        return object_pixels(img)
+    return array_pixels(np.asarray(img))
 
 
 def images_to_pdf(images: Iterable[bytes | np.ndarray], dpi: int = 72) -> bytes:

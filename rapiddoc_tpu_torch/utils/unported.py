@@ -10,9 +10,9 @@ from __future__ import annotations
 # ROADMAP.md, Queue 1: item number and title of each item the port
 # raises for
 ITEMS = {
-    "pdfio": (12, "12d, image files but PNG and JPEG, JPX, rare JPEG codings, other filters"),
+    "pdfio": (12, "12f, WEBP, JPX, rare JPEG codings, other filters and image forms"),
     "glyphs": (12, "12c's rest, bitmap-strike faces and complex shaping"),
-    "host_families": (15, "the host-only families"),
+    "host_families": (15, "15b, URLs and the rest of the host-only families"),
     "checkpoints": (17, "checkpoint converters and published checkpoints"),
 }
 

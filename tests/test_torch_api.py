@@ -458,22 +458,20 @@ def test_port_raises_when_the_rec_head_fails(pdf, monkeypatch, error):
 
 
 def test_port_raises_for_inputs_not_ported(tmp_path):
-    """GIF and WEBP images (ROADMAP item 12d), Office documents and URLs
-    raise; arrays and PNG or JPEG images are ported (item 12a,
-    tests/test_torch_image_inputs.py)."""
+    """WEBP images and BigTIFF files (ROADMAP item 12f) and URLs (item
+    15b) raise; PNG, JPEG, BMP, GIF and TIFF images, arrays and Office
+    documents are ported (tests/test_torch_image_inputs.py,
+    tests/test_torch_image_files.py, tests/test_torch_office.py)."""
     from rapiddoc_tpu_torch import RapidDoc
 
     doc = RapidDoc(device="cpu")
-    with pytest.raises(NotImplementedError, match="GIF images.*ROADMAP Queue 1 item 12:"):
-        doc(b"GIF89a" + bytes(16))
-    with pytest.raises(NotImplementedError, match="WEBP images"):
+    with pytest.raises(NotImplementedError, match="WEBP images.*ROADMAP Queue 1 item 12: 12f"):
         doc(b"RIFF\x10\x00\x00\x00WEBPVP8 " + bytes(8))
-    (tmp_path / "a.docx").write_bytes(b"PK\x03\x04")
-    with pytest.raises(NotImplementedError, match="Office"):
-        doc(tmp_path / "a.docx")
-    with pytest.raises(NotImplementedError, match="URL"):
+    (tmp_path / "a.gif").write_bytes(b"II+\x00" + bytes(16))
+    with pytest.raises(NotImplementedError, match="BigTIFF images.*item 12: 12f"):
+        doc(tmp_path / "a.gif")
+    with pytest.raises(NotImplementedError, match="URL.*item 15: 15b"):
         doc("https://example.invalid/a.pdf")
-
 
 
 def test_data_uri_markdown_equals_jax_package():

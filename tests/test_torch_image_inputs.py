@@ -4,8 +4,9 @@ against PIL and the JAX package, on the CPU.
 - ``pdfio/png.py`` against PIL: every colour type (0, 2, 3, 4, 6) at every
   8-bit-or-less depth, with the five row filters mixed per row, a short
   palette and a tRNS chunk: the pixels ``images_to_pdf`` takes (mode
-  ``L`` grey, else RGB) equal. 16-bit and interlaced PNGs, GIF and WEBP
-  raise NotImplementedError (ROADMAP item 12d).
+  ``L`` grey, else RGB) equal; 16-bit and interlaced PNGs too (every
+  form in ``tests/test_torch_image_files.py``), while WEBP raises
+  NotImplementedError (ROADMAP item 12f).
 - ``pdfio/jpeg_encode.py`` at quality 92 and other qualities, RGB and grey
   (mode ``L``): bytes equal to PIL's.
 - ``pdfio/writer.py``: ``images_to_pdf`` of PNG and JPEG files and of
@@ -308,18 +309,22 @@ def test_png_decoder_equals_pil(ctype, depth):
 
 
 def test_png_inputs_not_ported_raise():
+    """16-bit and interlaced PNGs decode as PIL opens them now
+    (``tests/test_torch_image_files.py`` holds every form); WEBP and
+    unknown files still raise, naming ROADMAP item 12f."""
+    from PIL import Image
+    from torch_image_files import png_bytes
+
     from rapiddoc_tpu_torch.pdfio.png import decode_image, decode_png
 
     rng = np.random.default_rng(0)
-    with pytest.raises(NotImplementedError, match="16-bit.*ROADMAP Queue 1 item 12:"):
-        decode_png(write_png(rng.integers(0, 255, (2, 6)), 8, 2, [0, 0])
-                   .replace(b"IHDR\x00\x00\x00\x02\x00\x00\x00\x02\x08", b"IHDR\x00\x00\x00\x02"
-                            b"\x00\x00\x00\x02\x10"))
-    with pytest.raises(NotImplementedError, match="interlaced"):
-        decode_png(write_png(rng.integers(0, 255, (2, 6)), 8, 2, [0, 0], interlace=1))
-    for data, name in ((b"GIF89a" + bytes(8), "GIF"), (b"RIFF\0\0\0\0WEBPVP8 ", "WEBP"),
-                       (b"BM" + bytes(20), "BMP")):
-        with pytest.raises(NotImplementedError, match=f"{name} images"):
+    for data in (png_bytes(rng.integers(0, 65535, (2, 6, 3)), 16, 2),
+                 png_bytes(rng.integers(0, 255, (5, 6, 3)), 8, 2, interlace=True)):
+        want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        assert np.array_equal(decode_png(data), want)
+    for data, name in ((b"RIFF\0\0\0\0WEBPVP8 ", "WEBP images"),
+                       (b"\x00\x01" + bytes(20), "image files other than")):
+        with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP Queue 1 item 12: 12f"):
             decode_image(data)
 
 

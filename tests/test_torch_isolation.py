@@ -2,7 +2,8 @@
 no jax, flax, cv2, PIL, fontTools, and nothing of the JAX package. The card's
 machine is not guaranteed any of those, so this is the CPU-side guard. The
 child process imports every module of the port with those blocked and runs
-the main path, Magika, and the CCITT, JBIG2 and shading code."""
+the main path, Magika, the CCITT, JBIG2 and shading code, an Office
+document (a docx) and an image file (a GIF)."""
 import ast
 import os
 import subprocess
@@ -59,6 +60,13 @@ MAIN_PATH_MODULES = (
     # the scanned and born-digital codecs
     "rapiddoc_tpu_torch.pdfio.ccitt", "rapiddoc_tpu_torch.pdfio.jbig2",
     "rapiddoc_tpu_torch.pdfio.shading",
+    # Office documents and the common image files
+    "rapiddoc_tpu_torch.office.analyze", "rapiddoc_tpu_torch.office.common",
+    "rapiddoc_tpu_torch.office.docx", "rapiddoc_tpu_torch.office.pptx",
+    "rapiddoc_tpu_torch.office.xlsx", "rapiddoc_tpu_torch.office.omml",
+    "rapiddoc_tpu_torch.office.chart", "rapiddoc_tpu_torch.office.images",
+    "rapiddoc_tpu_torch.pdfio.bmp", "rapiddoc_tpu_torch.pdfio.gif",
+    "rapiddoc_tpu_torch.pdfio.tiff", "rapiddoc_tpu_torch.pdfio.pil_modes",
 )
 
 
@@ -73,6 +81,21 @@ def _jbig2_stream() -> bytes:
 
     bmp = (np.arange(12 * 20).reshape(12, 20) % 7 == 0).astype(np.uint8)
     return E.segment(1, 48, [], 1, E.page_info(20, 12)) + E.generic_region_segment(2, bmp)
+
+
+def _docx() -> bytes:
+    """A docx of a heading and a paragraph (built here: the child may not
+    import the Office tests, which import the JAX package)."""
+    import io
+    import zipfile
+
+    w = 'xmlns:w="http://schemas.openxmlformats.org/wordprocessingml/2006/main"'
+    body = ('<w:p><w:pPr><w:pStyle w:val="Heading1"/></w:pPr><w:r><w:t>Title</w:t></w:r></w:p>'
+            '<w:p><w:r><w:t>isolated paragraph</w:t></w:r></w:p>')
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w") as z:
+        z.writestr("word/document.xml", f"<w:document {w}><w:body>{body}</w:body></w:document>")
+    return buf.getvalue()
 
 
 def test_port_imports_and_runs_with_banned_modules_blocked():
@@ -122,6 +145,11 @@ def test_port_imports_and_runs_with_banned_modules_blocked():
               "C0": [0], "C1": [1], "N": 1}}, "ColorSpace": "DeviceGray"}}
         rgb, alpha = shading.render_shading(Doc(), sh, (1, 0, 0, 1, 0, 0), (0, 0, 10, 2))
         assert rgb.shape == (2, 10, 3) and rgb[0, 9, 0] > rgb[0, 0, 0]
+        # an Office document and a GIF through the facade
+        doc = RapidDoc(device="cpu", dtype=torch.float32)
+        assert doc({_docx()!r}).markdown == "Title" + chr(10) * 2 + "isolated paragraph"
+        with open("rapiddoc_tpu_torch/assets/image_files_page.gif", "rb") as f:
+            assert doc(f.read(), parse_method="ocr").markdown.strip()
         loaded = sorted(k for k in sys.modules if k.split(".")[0] in {BANNED!r}
                         and sys.modules[k] is not None)
         assert not loaded, loaded

@@ -104,3 +104,63 @@ def test_text_and_classification_equal_jax(name):
 def test_classification_of_the_two_kinds():
     assert pdfio.classify_pdf(PDFS["fixture"]) == "ocr"
     assert pdfio.classify_pdf(PDFS["text"]) == "txt"
+
+
+def _lzw_strip(img: Image.Image) -> bytes:
+    """The one LZW strip PIL's libtiff writes for ``img``."""
+    import io
+    import struct
+
+    buf = io.BytesIO()
+    img.save(buf, format="TIFF", compression="tiff_lzw", tiffinfo={278: img.height})
+    data = buf.getvalue()
+    (first,) = struct.unpack_from("<I", data, 4)
+    tags = {}
+    for i in range(struct.unpack_from("<H", data, first)[0]):
+        tag, typ, _, value = struct.unpack_from("<HHII", data, first + 2 + 12 * i)
+        tags[tag] = value & 0xFFFF if typ == 3 else value
+    return data[tags[273]:tags[273] + tags[279]]
+
+
+@pytest.mark.parametrize("early", [None, 0, 1, 2])
+def test_lzw_decode_equals_jax(early):
+    """The port's /LZWDecode against the JAX package's on libtiff's
+    streams of seeded images; at EarlyChange 2 (libtiff's code widths,
+    which the TIFF decoder uses) both give the strip's bytes back."""
+    from rapiddoc_tpu.pdfio.filters import lzw_decode as jax_lzw
+    from rapiddoc_tpu_torch.pdfio.filters import lzw_decode
+
+    rng = np.random.default_rng(early or 7)
+    params = {} if early is None else {"EarlyChange": early}
+    with np.load(REPO / "rapiddoc_tpu_torch" / "assets" / "ocr_smoke_pages.npz") as z:
+        page = z["pages"][0][:300, :400]
+    images = [rng.integers(0, 256, (40, 60), dtype=np.uint8),
+              rng.integers(0, 4, (120, 90), dtype=np.uint8) * 60, page[..., 0]]
+    def outcome(fn, strip):
+        try:
+            return fn(strip, params)
+        except IndexError as exc:  # a code past the table, read at a wrong width
+            return repr(exc)
+
+    for arr in images:
+        strip = _lzw_strip(Image.fromarray(arr))
+        got = outcome(lzw_decode, strip)
+        assert got == outcome(jax_lzw, strip)
+        if early == 2:
+            assert got == arr.tobytes()
+
+
+def test_lzw_decode_time_grows_linearly():
+    """A 400 kB stream decodes in well under a second a run: the bit buffer
+    is kept short (an unbounded one made each code cost the stream's
+    length, about 30 s for this stream)."""
+    import time
+
+    from rapiddoc_tpu_torch.pdfio.filters import lzw_decode
+
+    arr = np.random.default_rng(3).integers(0, 256, (640, 640), dtype=np.uint8)
+    strip = _lzw_strip(Image.fromarray(arr))
+    assert len(strip) > 400_000
+    t0 = time.perf_counter()
+    assert lzw_decode(strip, {"EarlyChange": 2}) == arr.tobytes()
+    assert time.perf_counter() - t0 < 8.0
