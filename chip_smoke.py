@@ -143,6 +143,20 @@ per shape or run):
           an xlsx and a zero-byte docx in "url" and "data_uri" modes,
           Markdown, content list and middle json equal to the JAX
           package's golden; host-only, its seconds reported
+  serve   the HTTP service (serve/http.py) on 127.0.0.1 in a thread, in
+          main_path's environment: /health, the layout fixture as one
+          "ocr" request, it and the OCR fixture as a two-file zip
+          request, the two as two requests at once; every Markdown and
+          content list equal to an in-process RapidDoc(device="cuda")
+          parse of the same bytes, the layout fixture's within
+          main_path's bands; K1's launches held to the rec dispatches and
+          K2's to the decode steps inside the requests; ms a request and
+          pages/s beside the in-process call
+  cli     the command line with --checkbox --draw-layout --html on the
+          committed checkbox page: checkbox dets equal to the JAX
+          package's golden, the .md equal to an in-process parse's, every
+          output written, the overlay's pages decoded; K1's launches held
+          to the rec dispatches
 Then a timing line (seconds by phase), a ``{"kernels": [...]}`` line,
 the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
@@ -3495,6 +3509,253 @@ def phase_onnx(card: str) -> dict:
     return counts["ctc_head"]
 
 
+# ------------------------------------------ the fourteenth slice's paths
+
+SERVE_DOCS = ("layout_smoke_doc.pdf", "ocr_smoke_doc.pdf")
+CHECKBOX_PAGE = "checkbox_smoke_page.pdf"
+SERVE_FORM_BOUNDARY = "chip-smoke-boundary"
+
+
+def multipart(files: list[tuple[str, bytes]], fields: dict[str, str]) -> bytes:
+    """A multipart/form-data body of ``file``/``files`` parts and fields."""
+    b = SERVE_FORM_BOUNDARY
+    out = b""
+    for name, data in files:
+        part = "files" if len(files) > 1 else "file"
+        out += (f'--{b}\r\nContent-Disposition: form-data; name="{part}"; filename="{name}"\r\n'
+                "Content-Type: application/pdf\r\n\r\n").encode() + data + b"\r\n"
+    for key, value in fields.items():
+        out += f'--{b}\r\nContent-Disposition: form-data; name="{key}"\r\n\r\n{value}\r\n'.encode()
+    return out + f"--{b}--\r\n".encode()
+
+
+def http_call(port: int, method: str, path: str, body: bytes | None = None) -> tuple:
+    """(status, content type, body bytes) of one request to 127.0.0.1."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        headers = ({"Content-Type": f"multipart/form-data; boundary={SERVE_FORM_BOUNDARY}"}
+                   if body is not None else {})
+        conn.request(method, path, body=body, headers=headers)
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Content-Type"), resp.read()
+    finally:
+        conn.close()
+
+
+def launch_window(analyzer):
+    """Zeroes both kernels' launch counts and returns a function that reads
+    them beside the rec dispatches and decode steps since."""
+    from rapiddoc_tpu_torch.ops.ctc_head import fused_ctc_argmax
+    from rapiddoc_tpu_torch.ops.quant_head import fused_argmax_int8
+
+    rec, formula = analyzer.ocr.recognizer.session.stats, analyzer.formula_model.stats
+    calls, steps = rec.calls, formula.decode_steps
+    fused_ctc_argmax.launches = 0
+    fused_argmax_int8.launches = 0
+    return lambda: {"ctc_head": fused_ctc_argmax.launches,
+                    "quant_head": fused_argmax_int8.launches,
+                    "rec_dispatches": rec.calls - calls,
+                    "decode_steps": formula.decode_steps - steps}
+
+
+def check_launches(counts: dict, phase: str, need_k2: bool) -> None:
+    for name, per in (("ctc_head", "rec_dispatches"), ("quant_head", "decode_steps")):
+        check(counts[name] > 0 or (name == "quant_head" and not need_k2),
+              f"{phase} launched the {name} kernel no time")
+        check(counts[name] == counts[per],
+              f"{phase}: {counts[name]} {name} launches for {counts[per]} {per}")
+
+
+def phase_serve(card: str) -> dict:
+    """The HTTP service (serve/http.py) on 127.0.0.1 in a thread, in the
+    main_path phase's environment (demo layout, tables on, int8 head):
+    /health; the layout fixture as one "ocr" request; it and the OCR
+    fixture as one two-file zip request; the two as two requests at once.
+    Every Markdown and content list equal to an in-process
+    RapidDoc(device="cuda") parse of the same bytes and options, the
+    layout fixture's within main_path's bf16 int8 bands; K1's launches
+    held to the rec dispatches and K2's to the decode steps inside the
+    requests; ms a request and pages/s against the in-process call."""
+    import base64
+    import io
+    import threading
+    import zipfile
+    from types import SimpleNamespace
+
+    import torch
+
+    from rapiddoc_tpu_torch import NamedBytes, RapidDoc
+    from rapiddoc_tpu_torch.serve.http import make_server
+
+    t0 = time.perf_counter()
+    clean_env()
+    _table_env(True)
+    golden, _ = table_assets()
+    docs = {name: asset(name).read_bytes() for name in SERVE_DOCS}
+    fields = {"parse_method": '"ocr"', "return_content_list": "true",
+              "return_model_output": "true"}
+    rapid = RapidDoc(device="cuda", parse_method="ocr")  # the service's stack too
+    # the in-process parses: the batch first, which builds the stack and
+    # warms the card, then each document alone, timed
+    batch = rapid.parse_batch([NamedBytes(docs[n], n) for n in SERVE_DOCS])
+    want, inproc_ms = {}, {}
+    for name in SERVE_DOCS:
+        t1 = time.perf_counter()
+        want[name] = rapid(NamedBytes(docs[name], name))
+        torch.cuda.synchronize()
+        inproc_ms[name] = (time.perf_counter() - t1) * 1e3
+    pages = {name: len(out.model_json) for name, out in want.items()}
+    single = multipart([(SERVE_DOCS[0], docs[SERVE_DOCS[0]])], fields)
+    server = make_server("127.0.0.1", 0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        counts = launch_window(rapid._stack().analyzer)
+        status, ctype, body = http_call(port, "GET", "/health")
+        check(status == 200 and json.loads(body)["status"] == "ok", "serve: /health failed")
+        t1 = time.perf_counter()
+        status, ctype, body = http_call(port, "POST", "/file_parse", single)
+        single_ms = (time.perf_counter() - t1) * 1e3
+        check(status == 200 and ctype.startswith("application/json"),
+              f"serve: the single request answered {status} {ctype}")
+        got = {SERVE_DOCS[0]: json.loads(body)}
+        status, ctype, body = http_call(
+            port, "POST", "/file_parse",
+            multipart([(n, docs[n]) for n in SERVE_DOCS], fields))
+        check(status == 200 and ctype == "application/zip",
+              f"serve: the zip request answered {status} {ctype}")
+        with zipfile.ZipFile(io.BytesIO(body)) as z:
+            members = {n: z.read(n) for n in z.namelist()}
+        answers: dict = {}
+
+        def ask(name):
+            answers[name] = http_call(port, "POST", "/file_parse",
+                                      multipart([(name, docs[name])], fields))
+
+        t1 = time.perf_counter()
+        workers = [threading.Thread(target=ask, args=(n,)) for n in SERVE_DOCS]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=600)
+        check(not any(w.is_alive() for w in workers), "serve: a concurrent request hung")
+        concurrent_s = time.perf_counter() - t1
+        launches = counts()
+    finally:
+        server.shutdown()
+        server.close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "serve: the service did not stop")
+
+    def dumped(obj) -> str:
+        return json.dumps(obj, ensure_ascii=False, default=str)
+
+    for name in SERVE_DOCS:
+        stem = name.rsplit(".", 1)[0]
+        b = batch[SERVE_DOCS.index(name)]
+        check(members.get(f"{stem}/{stem}.md") == b.markdown.encode(),
+              f"serve: the zip's {stem}.md differs from the in-process parse_batch")
+        check(members.get(f"{stem}/{stem}_content_list.json") == dumped(b.content_list_json).encode(),
+              f"serve: the zip's {stem}_content_list.json differs from the in-process parse_batch")
+        status, ctype, body = answers[name]
+        check(status == 200, f"serve: the concurrent request for {name} answered {status}")
+        got_c = json.loads(body)
+        check(got_c["markdown"] == want[name].markdown
+              and got_c["content_list"] == json.loads(dumped(want[name].content_list_json)),
+              f"serve: the concurrent answer for {name} differs from the in-process parse")
+    one = got[SERVE_DOCS[0]]
+    check(one["markdown"] == want[SERVE_DOCS[0]].markdown
+          and one["content_list"] == json.loads(dumped(want[SERVE_DOCS[0]].content_list_json)),
+          "serve: the single answer differs from the in-process parse")
+    served = SimpleNamespace(
+        markdown=one["markdown"], content_list_json=one["content_list"],
+        model_json=one["model_output"],
+        images={k: base64.b64decode(v) for k, v in one["images"].items()})
+    vs = compare_table_parse(table_parse_summary(served), golden["bf16_int8"])
+    check_table_parse_bf16(vs)
+    check_launches(launches, "serve", need_k2=True)
+    n_layout = pages[SERVE_DOCS[0]]
+    emit({"phase": "serve", "card": card, "dtype": "bf16", "int8_head": True,
+          "requests": 5, "pages": pages,
+          "single_request_ms": single_ms,
+          "single_request_pages_per_s": n_layout / (single_ms / 1e3),
+          "in_process_ms": inproc_ms,
+          "in_process_pages_per_s": n_layout / (inproc_ms[SERVE_DOCS[0]] / 1e3),
+          "concurrent_pair_s": concurrent_s,
+          "concurrent_pages_per_s": sum(pages.values()) / concurrent_s,
+          "launches": launches, "vs_golden_bf16_int8": vs, "outputs_equal": True,
+          "phase_seconds": time.perf_counter() - t0})
+    return launches
+
+
+def phase_cli(card: str) -> dict:
+    """The command line (cli/main.py) with --checkbox --draw-layout --html
+    on the committed checkbox page, in the serve phase's environment: the
+    checkbox dets equal the golden (the JAX package's), the .md equals an
+    in-process parse's, every output is written and the overlay PDF's
+    pages decode; K1's launches held to the rec dispatches."""
+    import tempfile
+
+    import torch
+
+    from rapiddoc_tpu_torch import RapidDoc
+    from rapiddoc_tpu_torch.cli.main import main as cli_main
+    from rapiddoc_tpu_torch.pdfio import open_pdf, render_page_full
+    from rapiddoc_tpu_torch.types import CategoryId
+
+    t0 = time.perf_counter()
+    clean_env()
+    _table_env(True)
+    golden = json.loads(asset("checkbox_smoke_golden.json").read_text())
+    page = asset(CHECKBOX_PAGE)
+    stem = page.stem
+    rapid = RapidDoc(device="cuda", checkbox_config={"checkbox_enable": True})
+    want = rapid(page.read_bytes())
+    torch.cuda.synchronize()
+    dets = [[d for d in p["layout_dets"] if d["category_id"] == CategoryId.CheckBox]
+            for p in want.model_json]
+    check(json.loads(json.dumps(dets)) == golden["dets"],
+          "cli: the checkbox dets differ from the golden's")
+    with tempfile.TemporaryDirectory() as tmp:
+        counts = launch_window(rapid._stack().analyzer)  # the command line's stack too
+        t1 = time.perf_counter()
+        rc = cli_main([str(page), "-o", tmp, "--checkbox", "--draw-layout", "--html"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t1
+        launches = counts()
+        check(rc == 0, f"cli: exit code {rc}")
+        out = Path(tmp) / stem
+        written = sorted(p.name for p in out.iterdir())
+        for name in (f"{stem}.md", f"{stem}_middle.json", f"{stem}_content_list.json",
+                     f"{stem}.html", f"{stem}_layout.pdf"):
+            check((out / name).is_file() and (out / name).stat().st_size > 0,
+                  f"cli: {name} was not written")
+        check((out / f"{stem}.md").read_text(encoding="utf-8") == want.markdown,
+              "cli: the .md differs from the in-process parse")
+        check(json.loads((out / f"{stem}_content_list.json").read_text(encoding="utf-8"))
+              == json.loads(json.dumps(want.content_list_json, ensure_ascii=False, default=str)),
+              "cli: the content list differs from the in-process parse")
+        images = sorted(p.name for p in (out / "images").iterdir()) if (out / "images").is_dir() \
+            else []
+        check(images == sorted(k.split("/")[-1] for k in want.images),
+              "cli: the span images differ from the in-process parse's")
+        overlay = open_pdf((out / f"{stem}_layout.pdf").read_bytes())
+        shapes = [render_page_full(overlay.get_page(i), dpi=72, with_text=False)[0].shape
+                  for i in range(len(overlay))]
+        check(len(shapes) == len(want.model_json) and all(s[0] > 0 and s[1] > 0 for s in shapes),
+              "cli: the layout overlay's pages do not decode")
+    check_launches(launches, "cli", need_k2=False)
+    emit({"phase": "cli", "card": card, "dtype": "bf16", "int8_head": True,
+          "outputs": written, "checkbox_dets": len(dets[0]), "dets_equal_golden": True,
+          "markdown_equal": True, "overlay_pages": [list(s) for s in shapes],
+          "cli_seconds": cli_s, "launches": launches,
+          "phase_seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3545,6 +3806,8 @@ def main() -> int:
         onnx_launches = timed("onnx", phase_onnx, card)
         codec_launches = timed("codecs", phase_codecs, card)
         timed("office", phase_office, card)
+        serve_counts = timed("serve", phase_serve, card)
+        cli_counts = timed("cli", phase_cli, card)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3575,7 +3838,8 @@ def main() -> int:
                              "image_files": image_counts["image_files"],
                              "vector": vector_counts["ctc_head"],
                              "text": text_counts["ctc_head"], "onnx": onnx_launches,
-                             "codecs": codec_launches},
+                             "codecs": codec_launches, "serve": serve_counts["ctc_head"],
+                             "cli": cli_counts["ctc_head"]},
         "max_abs_err": k1["max_abs_err"],
         "max_rel_err": k1["max_rel_err"], "matches_plain": True,
         "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
@@ -3595,7 +3859,9 @@ def main() -> int:
                              "formula": k2_launches,
                              "image_inputs": image_counts["quant_head"],
                              "vector": vector_counts["quant_head"],
-                             "text": text_counts["quant_head"]},
+                             "text": text_counts["quant_head"],
+                             "serve": serve_counts["quant_head"],
+                             "cli": cli_counts["quant_head"]},
         "max_abs_err": k2["max_abs_err"],
         "max_rel_err": k2["max_rel_err"], "matches_plain": True,
         "ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"],

@@ -42,9 +42,13 @@ Bytes without a suffix that do not start with ``%PDF`` and are no
 PNG/JPEG/GIF/WEBP/Office file are sniffed by Magika
 (``utils/sniff.guess_suffix_by_bytes``) on the facade's device and routed
 as the JAX package routes them: Office documents to their path, an
-image through the PDF writer, anything else parsed as a PDF. URL
-inputs, and the image formats the port does not decode, raise
-NotImplementedError naming their ROADMAP items. A page whose page object
+image through the PDF writer, anything else parsed as a PDF. A URL
+(``http://`` or ``https://``) is downloaded with ``urllib``
+(``data.io.http_get``) and routed by its name; a status of 400 or above
+raises ``HttpStatusError`` worded as the JAX package's ``requests``
+words it. ``NamedBytes`` carries an upload's file name. The image
+formats the port does not decode raise NotImplementedError naming their
+ROADMAP items. A page whose page object
 is broken renders as a blank page, as in the JAX package; anything the
 port's renderer cannot draw raises, and so
 does an embedded image that the port cannot decode for
@@ -57,6 +61,7 @@ import json
 import math
 import os
 import re
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -74,7 +79,10 @@ from .config import (
     get_processing_window_size,
     table_enable_default,
 )
-from .data.io import DataWriter, FanoutDataWriter, FileBasedDataWriter, MemoryDataWriter
+from .data.io import (
+    DataWriter, FanoutDataWriter, FileBasedDataWriter, MemoryDataWriter, http_get,
+)
+from .engine.session import resolve_device
 from .pdfio.images import to_rgb, xobject_to_array
 from .pdfio.placements import original_image_streams
 from .pdfio.pil_modes import is_image_object
@@ -87,13 +95,25 @@ from .utils.checkpoint import resolve_checkpoint
 from .utils.logging import get_logger
 from .utils.sniff import guess_suffix_by_bytes
 from .utils.trace import GLOBAL_TRACER, stage_timer
-from .utils.unported import not_ported
 
 logger = get_logger("rapiddoc_tpu_torch.api")
 
 image_suffixes = (".png", ".jpg", ".jpeg", ".webp", ".gif", ".bmp")
 office_suffixes = (".docx", ".pptx", ".xlsx")
 old_office_suffixes = (".doc", ".ppt", ".xls")
+
+
+class NamedBytes(bytes):
+    """In-memory document bytes carrying a filename, so that suffix routing
+    (legacy .doc/.ppt/.xls, Office, images) works for uploads that never
+    touch the disk."""
+
+    name: str
+
+    def __new__(cls, data: bytes, name: str = "document"):
+        obj = super().__new__(cls, data)
+        obj.name = name
+        return obj
 
 
 @dataclass
@@ -117,6 +137,7 @@ class ModelStack:
     """Lazily-built model singleton, keyed by config, device and dtype."""
 
     _instances: dict[tuple, "ModelStack"] = {}
+    _lock = threading.Lock()
 
     def __init__(self, lang: str, formula_enable: bool, table_enable: bool,
                  configs: dict, device, dtype):
@@ -145,13 +166,16 @@ class ModelStack:
     @classmethod
     def get(cls, lang: str, formula_enable: bool, table_enable: bool,
             configs: dict | None = None, device=None, dtype=None) -> "ModelStack":
+        # the device as resolved: RapidDoc() and RapidDoc(device="cuda")
+        # share a stack, and RAPIDDOC_PLATFORM=cpu gets one of its own
         key = (lang, formula_enable, table_enable,
                repr(sorted((configs or {}).items())), cls._env_fingerprint(),
-               str(device), str(dtype))
-        if key not in cls._instances:
-            cls._instances[key] = cls(lang, formula_enable, table_enable, configs or {},
-                                      device, dtype)
-        return cls._instances[key]
+               str(resolve_device(device)), str(dtype))
+        with cls._lock:  # the HTTP service's workers share the cache
+            if key not in cls._instances:
+                cls._instances[key] = cls(lang, formula_enable, table_enable, configs or {},
+                                          device, dtype)
+            return cls._instances[key]
 
 
 class RapidDoc:
@@ -582,17 +606,24 @@ class RapidDoc:
         """(bytes, doc_name, kind): kind "pdf" for a PDF as it is and for an
         image file, array or image object as a one-page PDF at the render
         dpi, kind "office" for an Office document's bytes (a legacy one
-        converted by LibreOffice first); URLs raise."""
+        converted by LibreOffice first). A URL is downloaded, and named
+        by its path's last part."""
         if isinstance(item, np.ndarray) or is_image_object(item):
             return images_to_pdf([item], dpi=get_pdf_render_dpi()), "image", "pdf"
         if isinstance(item, (str, Path)):
             s = str(item)
             if s.startswith(("http://", "https://")):
-                raise not_ported("URL inputs", "host_families")
-            data = Path(s).read_bytes()
-            name = Path(s).name
+                from urllib.parse import unquote, urlparse
+
+                data = http_get(s, timeout=120)
+                name = os.path.basename(unquote(urlparse(s).path)) or "download"
+            else:
+                data = Path(s).read_bytes()
+                name = Path(s).name
         else:
             data = bytes(item)
+            # NamedBytes (or any bytes-like with a .name) keeps suffix
+            # routing for in-memory uploads (the HTTP service's)
             name = str(getattr(item, "name", "") or "document")
         stem, suffix = os.path.splitext(name)
         suffix = suffix.lower()

@@ -11,6 +11,7 @@ compile, and no CUDA graph yet.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Any, Callable, Sequence
 
@@ -44,9 +45,14 @@ class SessionStats:
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
-    """The card unless the caller names another device; raises if CUDA is
-    asked for and missing."""
-    dev = torch.device("cuda" if device is None else device)
+    """The device the caller names, else the card, or the CPU where
+    ``RAPIDDOC_PLATFORM`` (or ``MINERU_PLATFORM``) says ``cpu``, as the JAX
+    package's ``_force_platform`` reads it; raises if CUDA is asked for
+    and missing."""
+    if device is None:
+        plat = os.environ.get("RAPIDDOC_PLATFORM") or os.environ.get("MINERU_PLATFORM") or ""
+        device = "cpu" if plat.strip().lower() == "cpu" else "cuda"
+    dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU"

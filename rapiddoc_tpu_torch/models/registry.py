@@ -31,9 +31,12 @@ is missing, the formula recognizer, the table recognizer
 model still missing, no OCR system inside tables, as in the JAX
 package), the orientation classifier under
 ``USE_DOC_ORIENTATION_CLASSIFY``, the
-OCR system and the document analyzer around them. Checkboxes, custom
-models and the layout knob the port runs only at its default raise
-NotImplementedError naming their ROADMAP item.
+OCR system and the document analyzer around them. A stage config's
+``custom_model`` (an object with ``batch_predict``, or the shorthand
+``"paddleocr_vl"`` for the remote VL client of ``models/vl.py``) takes
+that stage's place (``models/custom.resolve_custom``), and the checkbox
+config's ``checkbox_enable`` turns on checkbox detection, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ from ..config import DEMO_ASSETS_DIR, env_bool, get_models_dir
 from ..pipeline.scheduler import DocumentAnalyzer
 from ..utils.logging import get_logger
 from ..utils.unported import not_ported
+from .custom import resolve_custom
 from .formula.engine import DemoFormulaVocab, FormulaConfig, FormulaRecognizer
 from .layout.engine import LayoutDetector
 from .ocr.det import DBNet
@@ -249,9 +253,8 @@ def build_analyzer(
     """The document analyzer on ``device`` (the card by default) in
     ``dtype`` (bf16 by default): the layout detector, the OCR system and
     the formula and table recognizers and the orientation classifier as
-    the JAX package builds them. Raises NotImplementedError, naming its
-    ROADMAP item, where the JAX package would build a stage the port does
-    not have yet: custom models and checkboxes."""
+    the JAX package builds them, a stage's custom model in its place, and
+    checkbox detection where the checkbox config asks for it."""
     configs = configs or {}
     for stage, cfg in configs.items():
         if isinstance(cfg, dict) and (
@@ -262,21 +265,23 @@ def build_analyzer(
                 "onnxruntime knobs; ignored (the port runs on the device "
                 "it is given)", stage,
             )
-        if isinstance(cfg, dict) and cfg.get("custom_model") is not None:
-            raise not_ported(f"a custom {stage} model", "host_families")
-    checkbox_cfg = configs.get("checkbox") or {}
-    if checkbox_cfg.get("checkbox_enable", checkbox_cfg.get("enable", False)):
-        raise not_ported("checkbox detection", "host_families")
-    ocr = None
-    if not os.environ.get("RAPIDDOC_DISABLE_OCR"):
+    custom = {stage: resolve_custom(configs.get(stage), stage)
+              for stage in ("layout", "ocr", "formula", "table")}
+    ocr = custom["ocr"]
+    if ocr is None and not os.environ.get("RAPIDDOC_DISABLE_OCR"):
         ocr = build_ocr_system(configs.get("ocr"), lang=lang, device=device, dtype=dtype)
-    layout = build_layout_model(configs.get("layout"), device=device, dtype=dtype)
-    formula = (build_formula_model(configs.get("formula"), device=device, dtype=dtype)
+    layout = custom["layout"] or build_layout_model(configs.get("layout"), device=device,
+                                                    dtype=dtype)
+    formula = (custom["formula"] or build_formula_model(configs.get("formula"), device=device,
+                                                        dtype=dtype)
                if formula_enable else None)
-    table = (build_table_model(configs.get("table"), device=device, dtype=dtype)
+    table = (custom["table"] or build_table_model(configs.get("table"), device=device,
+                                                  dtype=dtype)
              if table_enable else None)
+    checkbox_cfg = configs.get("checkbox") or {}
     return DocumentAnalyzer(
         layout_model=layout, ocr_system=ocr, formula_model=formula, table_model=table,
         orientation_model=build_orientation_model(device=device, dtype=dtype),
         formula_enable=formula_enable, table_enable=table_enable,
+        checkbox_enable=checkbox_cfg.get("checkbox_enable", checkbox_cfg.get("enable", False)),
     )

@@ -358,7 +358,7 @@ class Face:
             bx1 += px
             x_min, x_max = min(x_min, bx0), max(x_max, bx1)
             y_min, y_max = min(y_min, by0), max(y_max, by1)
-            placed.append((gid, px))
+            placed.append((gid, x + off))
             x += adv
         x_max = max(x_max, (x + 32) >> 6)
         return placed, x_min, x_max, y_min, y_max
@@ -375,19 +375,26 @@ class Face:
         x0, y0 = self._anchor_offset(anchor, x_min, y_max)
         return x0, y0, x0 + (x_max - x_min), y0 + (y_max - y_min)
 
-    def getmask(self, text: str, anchor: str | None = None):
+    def getmask(self, text: str, anchor: str | None = None,
+                start: tuple[float, float] = (0.0, 0.0)):
         """(L mask (h, w) uint8, (x offset, y offset)) as Pillow's
-        ``getmask2`` gives them."""
+        ``getmask2`` gives them. ``start`` is the fraction of the position
+        that ``ImageDraw.text`` hands it: the pen starts that far right
+        and down (rounded to 26.6, each glyph still at a whole pixel), and
+        the mask grows by its ceiling."""
         placed, x_min, x_max, y_min, y_max = self._boxes(text)
-        w, h = x_max - x_min, y_max - y_min
+        sx, sy = (math.floor(v * 64 + 0.5) for v in start)
+        w = x_max - x_min + math.ceil(start[0])
+        h = y_max - y_min + math.ceil(start[1])
+        py = (32 - sy) >> 6
         mask = np.zeros((max(h, 0), max(w, 0)), np.uint8)
         if w > 0 and h > 0:
-            for gid, px in placed:
+            for gid, pen in placed:
                 bm, left, top = self.bitmap(gid)
                 if bm.size == 0:
                     continue
-                x0 = px + left - x_min
-                y0 = y_max - top
+                x0 = ((pen + sx + 32) >> 6) + left - x_min
+                y0 = y_max - top - py
                 region = mask[y0:y0 + bm.shape[0], x0:x0 + bm.shape[1]]
                 a = region.astype(np.int32)
                 b = bm[:region.shape[0], :region.shape[1]].astype(np.int32)

@@ -20,20 +20,21 @@ buckets across page windows (formulas first, so that tables get the
 LaTeX of the formulas inside them). The helpers are the JAX package's
 code, unchanged.
 
-Not ported yet, and raising NotImplementedError with its ROADMAP item
-where the JAX package would run it: checkbox detection.
+②b checkbox detection (``utils/checkbox.py``) adds a CheckBox det with
+its tick glyph for every box found on a page when ``checkbox_enable``.
 
-Three differences of policy. Seal OCR with the port's own OCR system
-raises where it fails; the JAX package logs "seal OCR failed" and leaves
-the seals without text (a custom OCR object keeps that fallback). Rec runs as one call, without the JAX
-package's ``_rec_with_fallback`` (a failed batch retried crop by crop,
-each failed crop an empty low-score text), in ``_run_page_ocr`` and in
-``_recover_missed_text``. The table model is called with its formula
-and image items, without the JAX package's retry without them on a
-TypeError (a custom table model raises NotImplementedError in the port,
-``models/registry.py``). What fails there is the card or a compiled
-piece (a kernel that does not build, load or launch), and that is an
-error, never an empty text.
+Three differences of policy, each for the port's own models only (a
+custom model of ``models/custom.py`` keeps the JAX package's fallback).
+Seal OCR with the port's own OCR system raises where it fails; the JAX
+package logs "seal OCR failed" and leaves the seals without text. The
+port's rec runs as one call, without the JAX package's
+``_rec_with_fallback`` (a failed batch retried crop by crop, each failed
+crop an empty low-score text), in ``_run_page_ocr`` and in
+``_recover_missed_text``. The port's table model is called with its
+formula and image items, without the JAX package's retry without them on
+a TypeError. What fails there is the card or a compiled piece (a kernel
+that does not build, load or launch), and that is an error, never an
+empty text.
 """
 from __future__ import annotations
 
@@ -48,7 +49,6 @@ from ..types import CategoryId
 from ..utils import boxes as B
 from ..utils.logging import get_logger
 from ..utils.trace import stage_timer
-from ..utils.unported import not_ported
 
 logger = get_logger("rapiddoc_tpu_torch.scheduler")
 
@@ -437,8 +437,21 @@ class DocumentAnalyzer:
                     model_infos[i], page_images[i].shape[:2]
                 )
 
+        # ②b checkbox detection: dets carry the tick glyph
         if self.checkbox_enable:
-            raise not_ported("checkbox detection", "host_families")
+            from ..utils.checkbox import detect_checkboxes
+
+            for i in range(n):
+                for res in detect_checkboxes(page_images[i]):
+                    x0, y0, x1, y1 = res["bbox"]
+                    model_infos[i]["layout_dets"].append(
+                        {
+                            "category_id": CategoryId.CheckBox,
+                            "poly": _quad_poly(x0, y0, x1, y1),
+                            "score": 0.9,
+                            "checkbox": "☑" if res["checked"] else "☐",
+                        }
+                    )
 
         # ③ formulas
         if self.formula_enable and self.formula_model is not None:
@@ -463,6 +476,41 @@ class DocumentAnalyzer:
                 h, w = page_images[i].shape[:2]
                 _rotate_dets_back(model_infos[i]["layout_dets"], angle, w, h)
         return model_infos
+
+    def _recognize(self, crops):
+        """Rec over ``crops``: the port's recognizer in one call, a custom
+        OCR object's with the JAX package's ``_rec_with_fallback``."""
+        from ..models.ocr.engine import RecResult, TextSystem
+
+        if isinstance(self.ocr, TextSystem):
+            return self.ocr.recognizer(crops)
+        try:
+            return self.ocr.recognizer(crops)
+        except Exception:
+            logger.exception("rec batch failed; retrying per crop")
+        out = []
+        for crop in crops:
+            try:
+                out.extend(self.ocr.recognizer([crop]))
+            except Exception:
+                logger.exception("rec failed for a single crop; marking low-score")
+                out.append(RecResult("", 0.0))
+        return out
+
+    def _predict_tables(self, regions, mfd_items, fill_items):
+        """The table model over ``regions`` with the formulas and images
+        inside each; a custom model that takes neither gets the regions
+        alone, as in the JAX package."""
+        from ..models.table.engine import TableRecognizer
+
+        if isinstance(self.table_model, TableRecognizer):
+            return self.table_model.batch_predict(
+                regions, mfd_items=mfd_items, fill_items=fill_items)
+        try:
+            return self.table_model.batch_predict(
+                regions, mfd_items=mfd_items, fill_items=fill_items)
+        except TypeError:  # custom table model without mfd/fill support
+            return self.table_model.batch_predict(regions)
 
     def _run_seals(self, page_images, model_infos) -> None:
         from ..models.ocr.engine import TextSystem
@@ -530,7 +578,7 @@ class DocumentAnalyzer:
                     owners.append((page_i, det))
         if not crops:
             return
-        results = self.ocr.recognizer(crops)
+        results = self._recognize(crops)
         for (page_i, det), rec in zip(owners, results):
             if not rec.text:
                 continue
@@ -688,7 +736,7 @@ class DocumentAnalyzer:
                     owners.append((page_i, quad, float(score)))
         with stage_timer("ocr_rec", len(images)):
             logger.debug("rec over %d crops", len(crops))
-            rec_results = self.ocr.recognizer(crops)
+            rec_results = self._recognize(crops)
         for (page_i, quad, det_score), rec in zip(owners, rec_results):
             x0, y0 = float(quad[:, 0].min()), float(quad[:, 1].min())
             x1, y1 = float(quad[:, 0].max()), float(quad[:, 1].max())
@@ -779,9 +827,7 @@ class DocumentAnalyzer:
             ]
             fill_items = [t[3] for t in deferred.table]
             with stage_timer("table", len(regions)):
-                htmls = self.table_model.batch_predict(
-                    regions, mfd_items=mfd_items, fill_items=fill_items
-                )
+                htmls = self._predict_tables(regions, mfd_items, fill_items)
             for det, html in zip(owners, htmls):
                 if html:
                     det["html"] = html
@@ -877,9 +923,7 @@ class DocumentAnalyzer:
             for refs in mfd_refs
         ]
         with stage_timer("table", len(regions)):
-            htmls = self.table_model.batch_predict(
-                regions, mfd_items=mfd_items, fill_items=fill_items
-            )
+            htmls = self._predict_tables(regions, mfd_items, fill_items)
         for det, html in zip(owners, htmls):
             if html:
                 det["html"] = html

@@ -20,6 +20,11 @@ OpenCV's output and order:
   extents) and ``approx_poly_dp`` (OpenCV 5's closed Douglas-Peucker,
   which measures a point's distance to a range's segment, with its
   clean-up pass).
+
+``find_contours_list`` (RETR_LIST, for the seal and checkbox detectors),
+``fit_ellipse`` and ``is_contour_convex`` (``cv2.isContourConvex`` of
+integer points: every turn the same way, none straight) serve the other
+callers.
 """
 from __future__ import annotations
 
@@ -189,6 +194,29 @@ def bounding_rect(contour: np.ndarray) -> tuple[int, int, int, int]:
     x0, y0 = p.min(axis=0)
     x1, y1 = p.max(axis=0)
     return int(x0), int(y0), int(x1 - x0 + 1), int(y1 - y0 + 1)
+
+
+def is_contour_convex(contour: np.ndarray) -> bool:
+    """``cv2.isContourConvex`` of integer points: walking the closed
+    contour from its last edge, every cross product of consecutive edges
+    has the same sign; a zero one (a straight or repeated point) makes
+    it not convex, and so does an empty contour."""
+    p = [tuple(int(v) for v in q) for q in np.asarray(contour).reshape(-1, 2)]
+    n = len(p)
+    if n == 0:
+        return False
+    prev, cur = p[(n - 2 + n) % n], p[n - 1]
+    dx0, dy0 = cur[0] - prev[0], cur[1] - prev[1]
+    orientation = 0
+    for i in range(n):
+        prev, cur = cur, p[i]
+        dx, dy = cur[0] - prev[0], cur[1] - prev[1]
+        dxdy0, dydx0 = dx * dy0, dy * dx0
+        orientation |= 1 if dydx0 > dxdy0 else (2 if dydx0 < dxdy0 else 3)
+        if orientation == 3:
+            return False
+        dx0, dy0 = dx, dy
+    return True
 
 
 def approx_poly_dp(contour: np.ndarray, epsilon: float) -> np.ndarray:

@@ -458,10 +458,11 @@ def test_port_raises_when_the_rec_head_fails(pdf, monkeypatch, error):
 
 
 def test_port_raises_for_inputs_not_ported(tmp_path):
-    """WEBP images and BigTIFF files (ROADMAP item 12f) and URLs (item
-    15b) raise; PNG, JPEG, BMP, GIF and TIFF images, arrays and Office
-    documents are ported (tests/test_torch_image_inputs.py,
-    tests/test_torch_image_files.py, tests/test_torch_office.py)."""
+    """WEBP images and BigTIFF files (ROADMAP item 12f) raise; PNG, JPEG,
+    BMP, GIF and TIFF images, arrays, Office documents and URLs are
+    ported (tests/test_torch_image_inputs.py,
+    tests/test_torch_image_files.py, tests/test_torch_office.py,
+    tests/test_torch_data_io.py, against a local server)."""
     from rapiddoc_tpu_torch import RapidDoc
 
     doc = RapidDoc(device="cpu")
@@ -470,8 +471,6 @@ def test_port_raises_for_inputs_not_ported(tmp_path):
     (tmp_path / "a.gif").write_bytes(b"II+\x00" + bytes(16))
     with pytest.raises(NotImplementedError, match="BigTIFF images.*item 12: 12f"):
         doc(tmp_path / "a.gif")
-    with pytest.raises(NotImplementedError, match="URL.*item 15: 15b"):
-        doc("https://example.invalid/a.pdf")
 
 
 def test_data_uri_markdown_equals_jax_package():

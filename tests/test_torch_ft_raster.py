@@ -6,7 +6,8 @@ cubic ones, Type1 with flex).
 
 - ``getmask2(text, "L", anchor=...)`` byte-equal, with its offset, for
   single glyphs and runs of up to five (overlapping glyphs screen over
-  each other), from 2 to 120 px;
+  each other), from 2 to 120 px, and from fractional ``start``
+  positions;
 - ``getbbox`` with and without ``anchor="ls"``;
 - raqm's layout on DejaVu Sans (hinted, so only positions are held):
   pair kerning from GPOS and ligatures from GSUB give Pillow's advances.
@@ -78,6 +79,25 @@ def test_masks_and_boxes_equal_pillow(kind, seed):
             got, got_offset = face.getmask(text, anchor="ls")
             assert got_offset == tuple(offset), (px, text)
             assert np.array_equal(got, want), (kind, px, text)
+
+
+@pytest.mark.parametrize("kind", ["ttf", "otf"])
+def test_masks_from_a_fractional_start_equal_pillow(kind):
+    """``getmask2(text, "L", start=...)``, which ``ImageDraw.text`` calls
+    with the fraction of its position (the debug overlays' labels draw
+    at fractional positions): the pen starts that far right and down."""
+    data = _font(kind, 2)
+    rng = np.random.default_rng(7)
+    for px in (9, 12, 16, 33):
+        pil, face = ImageFont.truetype(io.BytesIO(data), px), Face(data, px)
+        for text in _strings(px)[-4:]:
+            for start in [(0.0, 0.0), (0.5, 0.5), (0.49, 0.51)] + [
+                    tuple(float(v) for v in rng.random(2)) for _ in range(6)]:
+                im, offset = pil.getmask2(text, "L", start=start)
+                want = np.asarray(im, np.uint8).reshape(im.size[1], im.size[0])
+                got, got_offset = face.getmask(text, start=start)
+                assert got_offset == tuple(offset), (px, text, start)
+                assert np.array_equal(got, want), (kind, px, text, start)
 
 
 def test_raster_square_exact_area():

@@ -3,7 +3,12 @@ no jax, flax, cv2, PIL, fontTools, and nothing of the JAX package. The card's
 machine is not guaranteed any of those, so this is the CPU-side guard. The
 child process imports every module of the port with those blocked and runs
 the main path, Magika, the CCITT, JBIG2 and shading code, an Office
-document (a docx) and an image file (a GIF)."""
+document (a docx), an image file (a GIF), the command line and the HTTP
+service.
+
+aiohttp, click, requests and FastAPI are banned too: the JAX package's
+CLI, service and downloads use them, and the card's machine has none of
+them."""
 import ast
 import os
 import subprocess
@@ -13,7 +18,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "rapiddoc_tpu_torch"
-BANNED = ("jax", "jaxlib", "flax", "cv2", "PIL", "fontTools", "rapiddoc_tpu")
+BANNED = ("jax", "jaxlib", "flax", "cv2", "PIL", "fontTools", "rapiddoc_tpu",
+          "aiohttp", "click", "requests", "fastapi")
 
 
 def _port_files() -> list[Path]:
@@ -67,6 +73,13 @@ MAIN_PATH_MODULES = (
     "rapiddoc_tpu_torch.office.chart", "rapiddoc_tpu_torch.office.images",
     "rapiddoc_tpu_torch.pdfio.bmp", "rapiddoc_tpu_torch.pdfio.gif",
     "rapiddoc_tpu_torch.pdfio.tiff", "rapiddoc_tpu_torch.pdfio.pil_modes",
+    # the entry points and the host families they call
+    "rapiddoc_tpu_torch.cli.main", "rapiddoc_tpu_torch.cli.common",
+    "rapiddoc_tpu_torch.serve.http", "rapiddoc_tpu_torch.serve.webui",
+    "rapiddoc_tpu_torch.models.cli", "rapiddoc_tpu_torch.models.custom",
+    "rapiddoc_tpu_torch.models.vl", "rapiddoc_tpu_torch.utils.checkbox",
+    "rapiddoc_tpu_torch.utils.draw", "rapiddoc_tpu_torch.utils.markdown_convert",
+    "rapiddoc_tpu_torch.chunker.text_splitters",
 )
 
 
@@ -150,6 +163,26 @@ def test_port_imports_and_runs_with_banned_modules_blocked():
         assert doc({_docx()!r}).markdown == "Title" + chr(10) * 2 + "isolated paragraph"
         with open("rapiddoc_tpu_torch/assets/image_files_page.gif", "rb") as f:
             assert doc(f.read(), parse_method="ocr").markdown.strip()
+        # the command line and the HTTP service
+        import http.client, tempfile, threading
+        from rapiddoc_tpu_torch.cli.main import main
+        from rapiddoc_tpu_torch.serve.http import make_server
+        os.environ["RAPIDDOC_PLATFORM"] = "cpu"
+        os.environ["RAPIDDOC_DISABLE_OCR"] = "1"
+        with tempfile.TemporaryDirectory() as tmp:
+            assert main(["rapiddoc_tpu_torch/assets/checkbox_smoke_page.pdf", "-o", tmp,
+                         "--checkbox", "--draw-layout", "--html"]) == 0
+            assert os.path.getsize(tmp + "/checkbox_smoke_page/checkbox_smoke_page_layout.pdf")
+        server = make_server("127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever)
+        thread.start()
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=60)
+        conn.request("GET", "/health")
+        assert conn.getresponse().status == 200
+        conn.close()
+        server.shutdown()
+        server.close()
+        thread.join(timeout=60)
         loaded = sorted(k for k in sys.modules if k.split(".")[0] in {BANNED!r}
                         and sys.modules[k] is not None)
         assert not loaded, loaded
@@ -163,4 +196,4 @@ def test_port_imports_and_runs_with_banned_modules_blocked():
         timeout=600, env=env,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert proc.stdout.startswith("ok")
+    assert proc.stdout.splitlines()[-1].startswith("ok")
