@@ -5,15 +5,17 @@ UniMERNet normalization (mean .7931, std .1738), grey replicated to 3
 channels, the smallest image bucket that fits, and a KV-cached greedy
 decode per (image bucket, batch chunk). OpenCV's grey conversion and
 INTER_LINEAR resize are the port's bit-equal numpy versions
-(``models/ocr/pre_post.py``). The HF-tokenizer path of the published
-checkpoint (``FormulaTokenizer``) and the FLOP accounting
-(``engine.flops.track*``) are not ported yet.
+(``models/ocr/pre_post.py``). The published checkpoint's ids are decoded
+by ``FormulaTokenizer``, a replay of the HF ``tokenizers`` package
+(``utils/hf_tokenizer.py``); the FLOP accounting (``engine.flops.track*``)
+is not ported yet.
 """
 from __future__ import annotations
 
 import os
 import re
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Callable
 
 import numpy as np
@@ -23,6 +25,7 @@ from ...engine.buckets import batch_chunks, pad_rows
 from ...engine.session import resolve_device
 from ...ops.layout import aligned_rows
 from ...ops.quant_head import fused_argmax_int8, quantize_weight_int8
+from ...utils.hf_tokenizer import Tokenizer
 from ..ocr.pre_post import resize_linear, rgb_to_gray
 from ..weights import load_flax_into, random_init, subtree
 from .decoder import greedy_decode
@@ -102,6 +105,25 @@ class DemoFormulaVocab:
         return detokenize([self.vocab[i] for i in ids if 3 <= i < len(self.vocab)])
 
 
+class FormulaTokenizer:
+    """UniMERNet-style tokenizer (HF tokenizers format): ids -> LaTeX, as
+    ``rapiddoc_tpu/models/formula/engine.py:71-91``. A missing file
+    decodes every sequence to "", as in the JAX package; a file that does
+    not parse raises ValueError here (the JAX package logs a warning and
+    decodes to "")."""
+
+    def __init__(self, path: Path | None):
+        self._tok = Tokenizer.from_file(path) if path is not None and path.is_file() else None
+
+    def available(self) -> bool:
+        return self._tok is not None
+
+    def decode(self, ids: list[int]) -> str:
+        if self._tok is None:
+            return ""
+        return fix_latex(self._tok.decode(ids, skip_special_tokens=True))
+
+
 def fix_latex(text: str) -> str:
     """Post-decode LaTeX cleanup (spacing artifacts from BPE)."""
     text = text.replace("\\ ", "\\")
@@ -175,7 +197,7 @@ class FormulaRecognizer:
         self._norm_table = torch.from_numpy(_NORM_TABLE).to(self.device)
         self.int8_head = int8_head
         self.argmax_int8: Callable = fused_argmax_int8
-        self.tokenizer: DemoFormulaVocab | None = None
+        self.tokenizer: DemoFormulaVocab | FormulaTokenizer | None = None
         self.stats = FormulaStats()
         self._int8_head_cache: tuple[torch.Tensor, torch.Tensor] | None = None
 

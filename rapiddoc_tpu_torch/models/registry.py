@@ -20,16 +20,23 @@ random-init (from ``HEAD_SEED``) at its width.
 ``FormulaRecognizer.build`` (``rapiddoc_tpu/models/formula/engine.py:197-236``):
 ``formula_demo.npz`` + ``formula_demo.json`` (PPHGNetV2-B0 encoder, a
 2-layer MBart decoder at the published widths, 57 tokens).
+``build_published_formula`` is its published branch: a converted
+``formula_net_plus_m.npz`` in the models dir (``tools/convert_weights.py
+formula``) under the default ``FormulaConfig`` (PP-FormulaNet_plus-M: B6
+encoder, 6 decoder layers, d_model 512, 50 000 tokens; a bare-decoder
+npz gets a random encoder, as in the JAX package), decoded by
+``formula_tokenizer.json`` (``convert_weights formula_dict``) through
+``FormulaTokenizer``.
 
 ``build_layout_model``, ``build_formula_model``, ``build_table_model``,
 ``build_orientation_model`` and ``build_analyzer`` are the JAX
 package's (``registry.py:161-260``): the layout detector
 (``LayoutDetector.build``: a published ``.onnx`` or npz, or the demo
 checkpoint under ``RAPIDDOC_DEMO_LAYOUT``) or None where its checkpoint
-is missing, the formula recognizer, the table recognizer
-(``TableRecognizer.build``: the demo checkpoints, ONNX models only for a
-model still missing, no OCR system inside tables, as in the JAX
-package), the orientation classifier under
+is missing, the formula recognizer (published, else demo), the table
+recognizer (``TableRecognizer.build``: published npz, else the demo
+checkpoints, ONNX models only for a model still missing, no OCR system
+inside tables, as in the JAX package), the orientation classifier under
 ``USE_DOC_ORIENTATION_CLASSIFY``, the
 OCR system and the document analyzer around them. A stage config's
 ``custom_model`` (an object with ``batch_predict``, or the shorthand
@@ -51,9 +58,8 @@ import torch
 from ..config import DEMO_ASSETS_DIR, env_bool, get_models_dir
 from ..pipeline.scheduler import DocumentAnalyzer
 from ..utils.logging import get_logger
-from ..utils.unported import not_ported
 from .custom import resolve_custom
-from .formula.engine import DemoFormulaVocab, FormulaConfig, FormulaRecognizer
+from .formula.engine import DemoFormulaVocab, FormulaConfig, FormulaRecognizer, FormulaTokenizer
 from .layout.engine import LayoutDetector
 from .ocr.det import DBNet
 from .ocr.engine import TextDetector, TextRecognizer, TextSystem
@@ -191,6 +197,22 @@ def build_formula_recognizer(
     return rec
 
 
+def build_published_formula(
+    device: str | torch.device | None = None,
+    dtype: torch.dtype | None = None,
+) -> FormulaRecognizer | None:
+    """The published formula recognizer from the models dir's converted
+    ``formula_net_plus_m.npz`` and ``formula_tokenizer.json``, or None
+    where the npz is missing."""
+    models_dir = get_models_dir()
+    flat = _load_if(models_dir / "formula_net_plus_m.npz")
+    if flat is None:
+        return None
+    rec = FormulaRecognizer(flat, config=FormulaConfig(), device=device, dtype=dtype)
+    rec.tokenizer = FormulaTokenizer(models_dir / "formula_tokenizer.json")
+    return rec
+
+
 def build_layout_model(configs: dict | None = None, device=None,
                        dtype: torch.dtype | None = None) -> LayoutDetector | None:
     """The layout detector, or None where the JAX package has none:
@@ -206,13 +228,14 @@ def build_layout_model(configs: dict | None = None, device=None,
 
 def build_formula_model(configs: dict | None = None, device=None,
                         dtype: torch.dtype | None = None) -> FormulaRecognizer | None:
-    """The demo formula recognizer, or None under RAPIDDOC_DISABLE_FORMULA.
-    A published checkpoint under the models dir raises: its HF tokenizer
-    is not ported."""
+    """The published formula recognizer where the models dir holds one,
+    else the demo one; None under RAPIDDOC_DISABLE_FORMULA."""
     if os.environ.get("RAPIDDOC_DISABLE_FORMULA"):
         return None
-    if (get_models_dir() / "formula_net_plus_m.npz").is_file():
-        raise not_ported("the published formula checkpoint and its tokenizer", "checkpoints")
+    rec = build_published_formula(device=device, dtype=dtype)
+    if rec is not None:
+        logger.info("formula: published checkpoint formula_net_plus_m.npz")
+        return rec
     return build_formula_recognizer(device=device, dtype=dtype)
 
 

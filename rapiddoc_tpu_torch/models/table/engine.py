@@ -25,10 +25,12 @@ taken).
 
 The JAX package's main path builds the recognizer without an OCR system
 (``TableRecognizer.build`` passes none), so every cell holds only
-injected formulas and image placeholders; so does the port's. Published
-table npz checkpoints raise NotImplementedError (ROADMAP Queue 1 item
-17); the published ONNX models (``onnx_models.py``) are built where the
-JAX package builds them, for a model no checkpoint provides.
+injected formulas and image placeholders; so does the port's. Converted
+published checkpoints (``table_{unet,unitable,slanet,cls}.npz`` in the
+models dir, ``tools/convert_weights.py unitable``) take priority over the
+demo checkpoints; the published ONNX models (``onnx_models.py``) are
+built where the JAX package builds them, for a model no checkpoint
+provides.
 """
 from __future__ import annotations
 
@@ -39,7 +41,6 @@ import torch
 
 from ...config import DEMO_ASSETS_DIR, get_models_dir
 from ...utils.logging import get_logger
-from ...utils.unported import not_ported
 from ..weights import load_flax_into, load_npz, nest_models, random_init
 from .cls import TableClassifier, TableClsNet, heuristic_table_kind
 from .matcher import build_html_from_grid, html_from_structure_tokens, match_ocr_to_cells
@@ -63,8 +64,7 @@ STRATEGIES = {
     "unet": ("unet", None),
 }
 
-# the published checkpoints the JAX package reads from the models dir
-PUBLISHED_NPZ = tuple(f"table_{k}.npz" for k in ("unet", "unitable", "slanet", "cls"))
+# the published ONNX models the JAX package reads from the models dir
 PUBLISHED_ONNX = ("unet.onnx", "paddle_cls.onnx", "q_cls.onnx", "slanet-plus.onnx")
 
 
@@ -138,30 +138,31 @@ class TableRecognizer:
     @classmethod
     def build(cls, configs: dict, device=None,
               dtype: torch.dtype | None = None) -> "TableRecognizer":
-        """The JAX package's ``TableRecognizer.build``, in its order: the
-        in-repo demo checkpoints (``table_{cls,unet,slanet,unitable}_demo.npz``,
-        read in place) where no published npz is (published npz files
-        raise NotImplementedError, ROADMAP Queue 1 item 17), then a
-        published ONNX model (``onnx_models.py``, the ONNX interpreter on
-        the same device, in float32) only for a model that is still
-        missing; no OCR system. With the demo checkpoints in the
-        repository, ONNX table models in the models dir change nothing,
-        as in the JAX package."""
+        """The JAX package's ``TableRecognizer.build``, in its order: a
+        converted published npz (``table_{cls,unet,slanet,unitable}.npz``
+        in the models dir), else the in-repo demo checkpoint
+        (``table_{key}_demo.npz``, read in place), then a published ONNX
+        model (``onnx_models.py``, the ONNX interpreter on the same
+        device, in float32) only for a model that is still missing; no OCR
+        system. With the demo checkpoints in the repository, ONNX table
+        models in the models dir change nothing, as in the JAX package.
+        Only the models the strategy runs are read."""
         models_dir = get_models_dir()
-        for name in PUBLISHED_NPZ + ("unitable_vocab.json",):
-            if (models_dir / name).is_file():
-                raise not_ported(f"the published table checkpoint {name}", "checkpoints")
         strategy = configs.get("strategy", "unet_slanet_plus")
         wired_kind, wireless_kind = STRATEGIES.get(strategy, (None, None))
-        # in-repo demo checkpoints trained on synthetic tables
-        demos = {key: DEMO_ASSETS_DIR / f"table_{key}_demo.npz"
-                 for key in ("unet", "slanet", "cls", "unitable")}
-        present = {key for key, path in demos.items() if path.is_file()}
+        sources = {}
+        for key in ("unet", "slanet", "cls", "unitable"):
+            for path in (models_dir / f"table_{key}.npz",
+                         DEMO_ASSETS_DIR / f"table_{key}_demo.npz"):
+                if path.is_file():
+                    sources[key] = path
+                    break
+        present = set(sources)
         variables = {
-            key: load_npz(demos[key])
+            key: load_npz(sources[key])
             for key in ("cls", wired_kind, wireless_kind) if key in present
         }
-        logger.info("table: demo synthetic-trained checkpoints %s", sorted(variables))
+        logger.info("table checkpoints: %s", {k: sources[k].name for k in sorted(variables)})
         unet_onnx, paddle_cls, q_cls, slanet_onnx = (models_dir / n for n in PUBLISHED_ONNX)
         has_onnx = any(p.is_file() for p in (unet_onnx, paddle_cls, q_cls, slanet_onnx))
         if not present and not has_onnx and not configs.get("allow_random_init", False):

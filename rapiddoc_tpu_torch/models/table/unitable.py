@@ -16,12 +16,15 @@ together over preallocated bf16 KV caches: logits in float32 plus the
 whitelist mask, argmax, a fifth consecutive bbox token replaced by
 ``]</td>``, PAD after a row is done, and a stop when every row is done
 or at ``max_len`` (on the card the test is read one step late,
-``engine/done_flag.py``). The published vocab.json under the models
-dir is not read: the port raises for it (ROADMAP Queue 1 item 17).
+``engine/done_flag.py``). The published vocab, ``unitable_vocab.json``
+in the models dir (copied there by ``tools/convert_weights.py
+unitable``), replaces the id -> token map as the JAX package reads it.
 """
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -30,6 +33,7 @@ from torch import nn
 
 from ...engine.buckets import batch_chunks, pad_rows
 from ...engine.done_flag import DoneFlag
+from ...config import get_models_dir
 from ...engine.session import resolve_device
 from ..common.layers import TransformerBlock
 from ..formula.decoder import CrossAttention, MemoryProjector, _attend, _scaled
@@ -65,15 +69,28 @@ BBOX_CLOSE_ID = HTML_BASE + HTML_TOKENS.index("]</td>")
 
 
 class TableVocab:
-    """id <-> token map of the published layout."""
+    """id <-> token map of the published layout, or of ``vocab_path``:
+    a JSON map of token -> id, or of id -> token, which replaces the
+    whole map. A file that is neither (or does not parse) leaves the
+    published layout in place, as in the JAX package."""
 
-    def __init__(self) -> None:
+    def __init__(self, vocab_path: str | Path | None = None) -> None:
         self.id_to_token: dict[int, str] = {EOS_ID: "<eos>", PAD_ID: "<pad>",
                                             PREFIX_ID: "[html+bbox]"}
         for i, tok in enumerate(HTML_TOKENS):
             self.id_to_token[HTML_BASE + i] = tok
         for i in range(N_BBOX_BINS):
             self.id_to_token[BBOX_BASE + i] = f"bbox-{i}"
+        if vocab_path is not None:
+            try:
+                data = json.loads(Path(vocab_path).read_text(encoding="utf-8"))
+                if isinstance(data, dict):
+                    if all(isinstance(v, int) for v in data.values()):
+                        self.id_to_token = {v: k for k, v in data.items()}
+                    else:
+                        self.id_to_token = {int(k): v for k, v in data.items()}
+            except (OSError, UnicodeDecodeError, ValueError, TypeError):
+                pass
 
     def decode(self, ids: list[int]) -> list[str]:
         out = []
@@ -314,7 +331,8 @@ class UniTableStructure:
     def __init__(self, model: UniTableModel, *, device=None,
                  dtype: torch.dtype | None = None):
         self.dims = model.decoder.cfg
-        self.vocab = TableVocab()
+        vocab = get_models_dir() / "unitable_vocab.json"
+        self.vocab = TableVocab(vocab if vocab.is_file() else None)
         self.device = resolve_device(device)
         self.dtype = torch.bfloat16 if dtype is None else dtype
         self.model = model.to(device=self.device, dtype=self.dtype).eval()

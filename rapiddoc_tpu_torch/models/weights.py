@@ -25,6 +25,9 @@ its type decides the layout change:
   (heads, head_dim, C) and (C,) for the output) as stored, the root
   module's own included.
 
+``save_variables`` writes such an npz from a nested tree, as the
+checkpoint converters (``tools/convert_weights.py``) do.
+
 The layout checkpoint (``layout_demo.npz``: 557 arrays, 16.8 M
 parameters; or a JAX random init of the published shape, flattened) maps
 onto ``models/layout/rtdetr.py``'s ``RTDETR`` this way with no table of
@@ -34,8 +37,7 @@ A checkpoint of several models in one file (the formula recognizer's
 ``encoder/…``, ``decoder/…`` and ``mem_proj/…``) is cut into one flat
 dict per model with :func:`subtree`, or loaded into a torch module with
 one child per model (the table stage's SLANet and UniTable) through
-:func:`nest_models`. Files are read in place and
-nothing is written. A model with no checkpoint gets seeded random
+:func:`nest_models`. Files are read in place. A model with no checkpoint gets seeded random
 weights from :func:`random_init`.
 """
 from __future__ import annotations
@@ -56,6 +58,27 @@ def load_npz(path: str | Path) -> dict[str, np.ndarray]:
             k: (v.astype(np.float32) if v.dtype == np.float16 else v)
             for k, v in z.items()
         }
+
+
+def save_variables(variables: dict, path: str | Path, half: bool = False) -> None:
+    """A nested flax-layout tree -> npz of flat ``a/b/c`` keys, as the JAX
+    package's ``save_variables`` (``rapiddoc_tpu/models/registry.py:45``)
+    writes it; ``half`` stores float32 leaves as float16."""
+    flat: dict[str, np.ndarray] = {}
+
+    def walk(node: dict, prefix: str = "") -> None:
+        for k, v in node.items():
+            key = f"{prefix}/{k}" if prefix else str(k)
+            if isinstance(v, dict):
+                walk(v, key)
+            else:
+                arr = np.asarray(v)
+                flat[key] = arr.astype(np.float16) if half and arr.dtype == np.float32 else arr
+
+    walk(variables)
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(str(path), **flat)
 
 
 def subtree(flat: dict[str, np.ndarray], name: str) -> dict[str, np.ndarray]:

@@ -12,7 +12,6 @@ from __future__ import annotations
 ITEMS = {
     "pdfio": (12, "12f, WEBP, JPX, rare JPEG codings, other filters and image forms"),
     "glyphs": (12, "12c's rest, bitmap-strike faces and complex shaping"),
-    "checkpoints": (17, "checkpoint converters and published checkpoints"),
 }
 
 

@@ -8,7 +8,11 @@ service.
 
 aiohttp, click, requests and FastAPI are banned too: the JAX package's
 CLI, service and downloads use them, and the card's machine has none of
-them."""
+them. So are PyYAML, safetensors and tokenizers, which the JAX package's
+checkpoint converters and formula tokenizer read published files with:
+the port reads them with its own ``utils/{yaml_subset,safetensors,
+hf_tokenizer}.py``; the child converts a checkpoint, a safetensors file,
+an inference yml and decodes through the tokenizer replay."""
 import ast
 import os
 import subprocess
@@ -19,7 +23,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "rapiddoc_tpu_torch"
 BANNED = ("jax", "jaxlib", "flax", "cv2", "PIL", "fontTools", "rapiddoc_tpu",
-          "aiohttp", "click", "requests", "fastapi")
+          "aiohttp", "click", "requests", "fastapi", "yaml", "safetensors", "tokenizers")
 
 
 def _port_files() -> list[Path]:
@@ -80,6 +84,14 @@ MAIN_PATH_MODULES = (
     "rapiddoc_tpu_torch.models.vl", "rapiddoc_tpu_torch.utils.checkbox",
     "rapiddoc_tpu_torch.utils.draw", "rapiddoc_tpu_torch.utils.markdown_convert",
     "rapiddoc_tpu_torch.chunker.text_splitters",
+    # the published checkpoints: converters, readers, downloader, bring-up
+    "rapiddoc_tpu_torch.engine.weights", "rapiddoc_tpu_torch.models.ocr.convert",
+    "rapiddoc_tpu_torch.models.formula.convert", "rapiddoc_tpu_torch.models.table.convert",
+    "rapiddoc_tpu_torch.models.layout.hgnet_convert", "rapiddoc_tpu_torch.models.download",
+    "rapiddoc_tpu_torch.tools.convert_weights", "rapiddoc_tpu_torch.tools.bringup",
+    "rapiddoc_tpu_torch.tools.eval_quality", "rapiddoc_tpu_torch.utils.teds",
+    "rapiddoc_tpu_torch.utils.safetensors", "rapiddoc_tpu_torch.utils.yaml_subset",
+    "rapiddoc_tpu_torch.utils.hf_tokenizer",
 )
 
 
@@ -183,6 +195,32 @@ def test_port_imports_and_runs_with_banned_modules_blocked():
         server.shutdown()
         server.close()
         thread.join(timeout=60)
+        assert not thread.is_alive()
+        # the published checkpoints' formats: a bare formula decoder .pth
+        # and an inference yml through convert_weights, a safetensors file
+        # written here by hand, and the tokenizer replay
+        import json, struct
+        sys.path.insert(0, "tests")
+        import torch_published as P
+        from rapiddoc_tpu_torch.tools.convert_weights import main as convert
+        from rapiddoc_tpu_torch.models.formula.engine import FormulaTokenizer
+        from rapiddoc_tpu_torch.utils import safetensors
+        with tempfile.TemporaryDirectory() as tmp:
+            os.environ["RAPIDDOC_MODELS_DIR"] = tmp
+            sd, _ = P.formula_checkpoint(0, bare=True, layers=6, d_model=16, ffn=32, heads=2,
+                                         vocab_size=40, max_len=16)
+            torch.save(sd, tmp + "/decoder.pth")
+            assert convert(["formula", tmp + "/decoder.pth"]) == 0
+            with open(tmp + "/inference.yml", "w") as f:
+                f.write(P.inference_yml(P.tokenizer_spec(300, seed=1)))
+            assert convert(["formula_dict", tmp + "/inference.yml"]) == 0
+            tok = FormulaTokenizer(__import__("pathlib").Path(tmp) / "formula_tokenizer.json")
+            assert tok.available() and isinstance(tok.decode(list(range(4, 60))), str)
+            head = json.dumps({{"w": {{"dtype": "F32", "shape": [2], "data_offsets": [0, 8]}}}})
+            with open(tmp + "/w.safetensors", "wb") as f:
+                f.write(struct.pack("<Q", len(head)) + head.encode()
+                        + np.array([1.5, -2], np.float32).tobytes())
+            assert safetensors.load_file(tmp + "/w.safetensors")["w"].tolist() == [1.5, -2.0]
         loaded = sorted(k for k in sys.modules if k.split(".")[0] in {BANNED!r}
                         and sys.modules[k] is not None)
         assert not loaded, loaded
@@ -197,3 +235,19 @@ def test_port_imports_and_runs_with_banned_modules_blocked():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.splitlines()[-1].startswith("ok")
+
+
+def test_no_checkpoints_item_remains():
+    """ROADMAP item 17 is ported: nothing raises ``not_ported(...,
+    "checkpoints")`` and ``ITEMS`` has no ``checkpoints`` key."""
+    from rapiddoc_tpu_torch.utils.unported import ITEMS
+
+    assert "checkpoints" not in ITEMS
+    calls = []
+    for path in _port_files():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Call) and getattr(node.func, "id", None) == "not_ported":
+                calls.append((path.name, [ast.literal_eval(a) for a in node.args[1:]
+                                          if isinstance(a, ast.Constant)]))
+    assert calls, "no not_ported call found: the scan is wrong"
+    assert not [c for c in calls if "checkpoints" in c[1]], calls
