@@ -208,8 +208,8 @@ BF16_MAX_UNMATCHED, BF16_MIN_EXACT, BF16_MAX_CER = 4, 0.60, 0.05
 # the band, and full fp32 far below it.
 BF16_GAP_BAND = (0.6, 1.5)
 KERNELS = ("ctc_head", "quant_head")
-# jpeg_entropy and bilevel: host code, not kernels
-BUILDS = KERNELS + ("jpeg_entropy", "bilevel")
+# jpeg_entropy, bilevel, webp and jpx: host code, not kernels
+BUILDS = KERNELS + ("jpeg_entropy", "bilevel", "webp", "jpx")
 # The pipeline's bf16 Markdown against the JAX package's bf16 golden: the
 # ocr phase's limits (line share and CER). The port's bf16 on the CPU
 # reads 56/74 lines equal (0.757), CER 0.0083, and the JAX package's own
@@ -3984,6 +3984,157 @@ def phase_cli(card: str) -> dict:
     return launches
 
 
+# The sixteenth slice: WEBP files and JPXDecode images
+# (tests/torch_webp_jpx.py writes the fixtures and the JAX package's
+# golden). The plain loops run on a band: the page's first
+# WEBP_BAND_MB_ROWS macroblock rows, the scan's first JPX_BAND_BLOCKS
+# code-blocks.
+WEBP_BAND_MB_ROWS = 2
+JPX_BAND_BLOCKS = 12
+
+
+def phase_webp_jpx(card: str) -> dict:
+    """WEBP and JPEG 2000 through the compiled host loops (csrc/webp.cu,
+    csrc/jpx.cu) on the card's machine: every small file of the matrix
+    decoded compiled (the WEBP ones plain too), equal to PIL's recorded
+    mode and pixel sha256; the 1700 x 2200 WEBP page and the 300 dpi JPX scan
+    decoded compiled (PIL's sha256, ms a page, the first decode) and plain
+    on a band (equal to the compiled band, ms); RapidDoc(device="cuda")
+    in fp32 (TF32 off), demo layout and formula stage, on the page's path,
+    its bytes with no suffix and the scan PDF, equal to the JAX package's
+    golden; then, with the int8 head, a bf16 parse of the scan (which
+    builds the models) and one timed of the page's bytes, K1's launches
+    held to the rec dispatches and K2's to the decode steps (the tests
+    hold images_to_pdf and the scan's renders to the JAX package on the
+    CPU). Returns the launches."""
+    import numpy as np
+    import torch
+
+    from rapiddoc_tpu_torch import RapidDoc
+    from rapiddoc_tpu_torch.ops import build
+    from rapiddoc_tpu_torch.ops.ctc_head import fused_ctc_argmax
+    from rapiddoc_tpu_torch.ops.quant_head import fused_argmax_int8
+    from rapiddoc_tpu_torch.pdfio import jpx, open_pdf, vp8, webp
+
+    t_phase = time.perf_counter()
+    check(build.host_compiled(), "webp_jpx: the host decoders would not run compiled")
+    golden = json.loads(asset("webp_jpx_golden.json").read_text())
+
+    # the matrix: compiled and plain against PIL's digests
+    decoders = {"webp": webp.webp_mode, "jpx": jpx.jpx_mode}
+    with np.load(asset("webp_jpx_matrix.npz")) as z:
+        files = {k: z[k].tobytes() for k in z.files if k.split("/")[0] in decoders}
+        want = {k: (str(z[f"mode/{k}"]), str(z[f"sha256/{k}"])) for k in files}
+    for key, data in files.items():
+        # the WEBP files plain too; JPX's tier 1 meets its plain version
+        # on the scan's band below
+        for compiled in (True, False) if key.startswith("webp/") else (True,):
+            mode, px = decoders[key.split("/")[0]](data, compiled=compiled)
+            check((mode, sha256(px)) == want[key],
+                  f"webp_jpx: {key} ({'compiled' if compiled else 'plain'}) differs from PIL's")
+    emit({"phase": "webp_jpx", "path": "matrix", "card": card, "files": len(files),
+          "equal_to_pil": True, "seconds": time.perf_counter() - t_phase})
+    t_part = time.perf_counter()
+
+    # the WEBP page
+    page = asset("webp_jpx_page.webp").read_bytes()
+    check(page[12:16] == b"VP8 ", "webp_jpx: the page is not a simple lossy WEBP")
+    payload = page[20:20 + int.from_bytes(page[16:20], "little")]
+    t0 = time.perf_counter()
+    mode, px = webp.webp_mode(page)
+    webp_ms = (time.perf_counter() - t0) * 1e3
+    check(mode == golden["page_mode"] and sha256(px) == golden["page_sha256"],
+          "webp_jpx: the WEBP page differs from PIL's pixels")
+    t0 = time.perf_counter()
+    band = vp8.decode_planes(payload, WEBP_BAND_MB_ROWS)[1:]
+    webp_band_plain_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cband = webp.compiled_planes(payload, WEBP_BAND_MB_ROWS)[2:]
+    webp_band_compiled_ms = (time.perf_counter() - t0) * 1e3
+    check(all(np.array_equal(a, b) for a, b in zip(band, cband)),
+          "webp_jpx: the compiled VP8 loops differ from the plain ones")
+    mb_rows = (px.shape[0] + 15) // 16
+
+    # the JPX scan
+    scan_pdf = asset("webp_jpx_scan.pdf").read_bytes()
+    doc = open_pdf(scan_pdf)
+    stream = doc.resolve(doc.get_page(0).resources["XObject"]["Im0"])
+    scan = doc.stream_bytes(stream)
+    t0 = time.perf_counter()
+    scan_px = jpx.jpx_mode(scan)[1]
+    jpx_ms = (time.perf_counter() - t0) * 1e3
+    check(sha256(scan_px) == golden["scan_sha256"], "webp_jpx: the JPX scan differs from PIL's pixels")
+    cs = jpx.Codestream(jpx.jp2_codestream(scan)[0])
+    jobs = [args for _, _, _, args in jpx.block_jobs(jpx.tile_blocks(cs, 0)[2][0])]
+    sample = jobs[:JPX_BAND_BLOCKS]
+    t0 = time.perf_counter()
+    plain = [jpx.decode_block(*a, compiled=False) for a in sample]
+    jpx_band_plain_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    compiled = [jpx.decode_block(*a, compiled=True) for a in sample]
+    jpx_band_compiled_ms = (time.perf_counter() - t0) * 1e3
+    check(all(np.array_equal(a, b) for a, b in zip(plain, compiled)),
+          "webp_jpx: the compiled tier 1 differs from the plain one")
+    emit({"phase": "webp_jpx", "path": "decoders", "card": card, "equal_to_pil": True,
+          "webp_page": list(px.shape), "webp_compiled_ms_per_page": webp_ms,
+          "webp_band_mb_rows": WEBP_BAND_MB_ROWS, "webp_page_mb_rows": mb_rows,
+          "webp_band_plain_ms": webp_band_plain_ms,
+          "webp_band_compiled_planes_ms": webp_band_compiled_ms,
+          "jpx_scan": [int(stream.dict["Height"]), int(stream.dict["Width"])],
+          "jpx_compiled_ms_per_page": jpx_ms, "jpx_band_blocks": len(sample),
+          "jpx_page_blocks": len(jobs), "jpx_band_plain_t1_ms": jpx_band_plain_ms,
+          "jpx_band_compiled_t1_ms": jpx_band_compiled_ms, "seconds": time.perf_counter() - t_part})
+    t_part = time.perf_counter()
+
+    # the parses
+    inputs = {"webp_path": asset("webp_jpx_page.webp"), "webp_bytes": page,
+              "jpx_pdf": scan_pdf}
+
+    def summary(out) -> dict:
+        got = parse_summary(out)
+        got["dets"] = masked_dets(out.model_json)
+        return json.loads(json.dumps(got))
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    clean_env(**golden["config"])
+    rapid = RapidDoc(device="cuda", dtype=torch.float32)
+    for key, item in inputs.items():
+        assert_same_parse(summary(rapid(item, parse_method="ocr")), golden["fp32"][key],
+                          f"webp_jpx fp32 {key}")
+    fp32_s = time.perf_counter() - t_part
+    clean_env(**golden["config"], RAPIDDOC_INT8_HEAD="1")
+    rapid = RapidDoc(device="cuda", parse_method="ocr")
+    t_part = time.perf_counter()
+    warm = rapid(inputs["jpx_pdf"])  # builds the bf16 models
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t_part
+    analyzer = rapid._stack().analyzer
+    rec, formula = analyzer.ocr.recognizer.session.stats, analyzer.formula_model.stats
+    calls, steps = rec.calls, formula.decode_steps
+    fused_ctc_argmax.launches = 0
+    fused_argmax_int8.launches = 0
+    t0 = time.perf_counter()
+    outs = [rapid(inputs["webp_bytes"])]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"ctc_head": fused_ctc_argmax.launches, "quant_head": fused_argmax_int8.launches,
+              "rec_dispatches": rec.calls - calls, "decode_steps": formula.decode_steps - steps}
+    vs = {k: compare_markdown(o.markdown, golden["bf16"][k]["markdown"])
+          for o, k in ((warm, "jpx_pdf"), (outs[0], "webp_bytes"))}
+    emit({"phase": "webp_jpx", "path": "parse", "card": card, "fp32_equal": True,
+          "bf16_pages": len(outs), "bf16_pages_per_s": len(outs) / wall, "launches": counts,
+          "vs_golden_bf16": vs, "fp32_parses_seconds": fp32_s, "bf16_warm_up_seconds": warm_s,
+          "bf16_parse_seconds": wall, "phase_seconds": time.perf_counter() - t_phase})
+    check(all(o.markdown.strip() for o in (warm, *outs)), "webp_jpx bf16: an empty Markdown")
+    for name, per in (("ctc_head", "rec_dispatches"), ("quant_head", "decode_steps")):
+        check(counts[name] > 0, f"webp_jpx launched the {name} kernel no time")
+        check(counts[name] == counts[per],
+              f"webp_jpx: {counts[name]} {name} launches for {counts[per]} {per}")
+    clean_env()
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -4035,6 +4186,7 @@ def main() -> int:
         text_counts = timed("text", phase_text, card)
         onnx_launches = timed("onnx", phase_onnx, card)
         codec_launches = timed("codecs", phase_codecs, card)
+        webp_jpx_counts = timed("webp_jpx", phase_webp_jpx, card)
         timed("office", phase_office, card)
         serve_counts = timed("serve", phase_serve, card)
         cli_counts = timed("cli", phase_cli, card)
@@ -4072,7 +4224,8 @@ def main() -> int:
                              "vector": vector_counts["ctc_head"],
                              "text": text_counts["ctc_head"], "onnx": onnx_launches,
                              "published": published["ctc_head"],
-                             "codecs": codec_launches, "serve": serve_counts["ctc_head"],
+                             "codecs": codec_launches, "webp_jpx": webp_jpx_counts["ctc_head"],
+                             "serve": serve_counts["ctc_head"],
                              "cli": cli_counts["ctc_head"]},
         "max_abs_err": k1["max_abs_err"],
         "max_rel_err": k1["max_rel_err"], "matches_plain": True,
@@ -4096,6 +4249,7 @@ def main() -> int:
                              "image_inputs": image_counts["quant_head"],
                              "vector": vector_counts["quant_head"],
                              "text": text_counts["quant_head"],
+                             "webp_jpx": webp_jpx_counts["quant_head"],
                              "serve": serve_counts["quant_head"],
                              "cli": cli_counts["quant_head"]},
         "max_abs_err": k2["max_abs_err"],

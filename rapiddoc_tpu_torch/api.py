@@ -22,7 +22,7 @@ outputs are the JAX package's; the port adds its ``device`` (the card by
 default) and ``dtype`` (bf16 by default) arguments. Windows render
 serially (the JAX package's process pool renders the same pages).
 
-Image inputs (a PNG, JPEG, BMP, GIF or TIFF path or bytes, an array of
+Image inputs (a PNG, JPEG, BMP, GIF, TIFF or WEBP path or bytes, an array of
 any type ``Image.fromarray`` takes, or an image object with
 ``__array_interface__`` and a PIL-style ``mode``) become a one-page PDF
 through ``pdfio.writer.images_to_pdf`` at the render dpi, with the

@@ -14,7 +14,8 @@ Each prints one JSON object per input image on stdout. --config takes a
 JSON dict forwarded to the stage's build function (same keys as the RapidDoc
 per-stage configs, e.g. '{"model_type": "pp_doclayout_s"}'). Port of
 the JAX package's module: images are read by the port's decoders
-(``pdfio/png.decode_image``: PNG, JPEG, BMP, GIF, TIFF) and the models run
+(``pdfio/png.decode_image``: PNG, JPEG, BMP, GIF, TIFF, WEBP, JPEG 2000) and
+the models run
 on the card, or on the CPU under ``RAPIDDOC_PLATFORM=cpu``.
 """
 from __future__ import annotations

@@ -100,8 +100,9 @@ def build(name: str) -> Path:
 
 def host_compiled() -> bool:
     """Whether the host-side decoders (``csrc/bilevel.cu``,
-    ``csrc/jpeg_entropy.cu``) run compiled: where a card is present, with
-    no fallback; else their plain Python versions run."""
+    ``csrc/jpeg_entropy.cu``, ``csrc/webp.cu``, ``csrc/jpx.cu``) run
+    compiled: where a card is present, with no fallback; else their plain
+    Python versions run."""
     import torch
 
     return torch.cuda.is_available()

@@ -26,10 +26,15 @@ RGB and (H, W, 4) for RGBA.
   resized BICUBIC to the image's size when it differs
   (``pil_resample.resize``), becomes alpha.
 
-JPXDecode raises NotImplementedError naming its ROADMAP item. Where the
-JAX package's decode fails (a corrupt stream, a colour space PIL cannot
-hold), this module raises and the page fails; the JAX renderer leaves
-the background there.
+- JPXDecode: ``pdfio.jpx`` (PIL's image over OpenJPEG) in PIL's own
+  mode, as the JAX package keeps it: ``/ColorSpace``, ``/Decode`` and
+  ``/SMaskInData`` are ignored; ``I;16`` comes back as (H, W) uint16,
+  which ``convert("L")`` and ``convert("RGB(A)")`` clip at 255, and an
+  ``LA`` image is drawn as a stencil, as the JAX renderer draws it.
+
+Where the JAX package's decode fails (a corrupt stream, a colour space
+PIL cannot hold), this module raises and the page fails; the JAX
+renderer leaves the background there.
 """
 from __future__ import annotations
 
@@ -158,11 +163,21 @@ def _from_array(arr: np.ndarray) -> np.ndarray:
     return arr
 
 
+def clip16(img: np.ndarray) -> np.ndarray:
+    """An ``I;16`` image's grey levels as PIL converts them to 8 bits
+    (``I16_L``, ``I16_RGB``: above 255 reads 255); other images as they
+    are."""
+    if img.dtype == np.uint16:
+        return np.minimum(img, 255).astype(np.uint8)
+    return img
+
+
 def convert_l(img: np.ndarray) -> np.ndarray:
-    """PIL's ``convert("L")``: grey as it is, the L of LA, and RGB(A) as
-    ITU-R 601 luma in 16-bit fixed point (alpha ignored)."""
+    """PIL's ``convert("L")``: grey as it is (``I;16`` clipped), the L of
+    LA, and RGB(A) as ITU-R 601 luma in 16-bit fixed point (alpha
+    ignored)."""
     if img.ndim == 2:
-        return img
+        return clip16(img)
     if img.shape[2] == 2:
         return np.ascontiguousarray(img[..., 0])
     rgb = img[..., :3].astype(np.uint32)
@@ -213,6 +228,10 @@ def xobject_to_array(doc, stream: Stream) -> np.ndarray | None:
                 glob = None
         bitmap = jbig2_decode(decode_stream(stream, r), glob, width, height)
         img = ((1 - bitmap) * 255).astype(np.uint8)  # 1 is black
+    elif codec == "JPXDecode":
+        from .jpx import jpx_mode
+
+        img = jpx_mode(decode_stream(stream, r))[1]
     elif codec is not None:
         raise not_ported(f"{codec} images", "pdfio")
     elif bool(r(d.get("ImageMask", False))):
@@ -226,6 +245,7 @@ def xobject_to_array(doc, stream: Stream) -> np.ndarray | None:
         alpha = xobject_to_array(doc, smask)
         if alpha is not None:
             alpha = resize(convert_l(alpha), img.shape[1], img.shape[0], "bicubic")
+            img = clip16(img)
             if img.ndim == 2 or img.shape[2] == 2:
                 rgb = np.repeat(img[..., :1] if img.ndim == 3 else img[..., None], 3, 2)
             else:
@@ -282,8 +302,9 @@ def _raw_image(doc, data: bytes, d: dict, width: int, height: int) -> np.ndarray
 
 
 def to_rgb(img: np.ndarray) -> np.ndarray:
-    """PIL's ``convert("RGB")`` of a decoded image: grey and the L of LA
-    repeated, alpha dropped."""
+    """PIL's ``convert("RGB")`` of a decoded image: grey (``I;16``
+    clipped) and the L of LA repeated, alpha dropped."""
+    img = clip16(img)
     if img.ndim == 2:
         return np.repeat(img[..., None], 3, 2)
     if img.shape[2] == 2:

@@ -193,8 +193,9 @@ def decode_image(data: bytes) -> np.ndarray:
     (H, W) for mode ``L``, else (H, W, 3) RGB. PNG (``decode_png``), the
     JPEGs ``pdfio.jpeg`` decodes (a CMYK one through Pillow's
     ``convert("RGB")``), BMP (``pdfio.bmp``), GIF's first frame
-    (``pdfio.gif``) and TIFF's first page (``pdfio.tiff``); WEBP and the
-    rest raise NotImplementedError naming ROADMAP item 12f."""
+    (``pdfio.gif``), TIFF's first page (``pdfio.tiff``), WEBP's first
+    frame (``pdfio.webp``) and JPEG 2000 (``pdfio.jpx``); the rest raise
+    NotImplementedError naming ROADMAP item 12f."""
     if data.startswith(SIGNATURE):
         return decode_png(data)
     if data[:3] == b"\xff\xd8\xff":
@@ -207,5 +208,12 @@ def decode_image(data: bytes) -> np.ndarray:
     if data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
         return decode_tiff(data)
     if data[:4] == b"RIFF":
-        raise not_ported("WEBP images", "pdfio")
-    raise not_ported("image files other than PNG, JPEG, BMP, GIF and TIFF", "pdfio")
+        from .webp import decode_webp
+
+        return decode_webp(data)
+    if data[:4] == b"\xff\x4f\xff\x51" or data[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n":
+        from .jpx import decode_jpx
+
+        return decode_jpx(data)
+    raise not_ported("image files other than PNG, JPEG, BMP, GIF, TIFF, WEBP and JPEG 2000",
+                     "pdfio")

@@ -54,7 +54,10 @@ of one ink commute), which gives the same bytes.
 What the JAX package would draw and this module does not draw yet raises
 NotImplementedError naming its ROADMAP item, and is never left as
 background: faces of bitmap strikes and text that needs complex shaping
-(``ft_face``) and the codecs ``pdfio.images`` does not take (JPX). Where
+(``ft_face``), the codings ``pdfio.images`` does not take (ROADMAP item
+12f) and a 16-bit JPX image drawn at another size (PIL resamples
+``I;16`` in its 16-bit path; at its own size it is clipped to 255 as
+``convert("RGB")`` clips it). Where
 the JAX package catches a failure and draws nothing (an image that does
 not decode, a shading or pattern that raises) or mid-grey (a tiling cell
 whose content raises), the page fails here. The content
@@ -72,6 +75,7 @@ from pathlib import Path
 import numpy as np
 
 from ..models.ocr.pre_post import resize_area, resize_linear
+from ..utils.unported import not_ported
 from . import pil_draw
 from .ft_face import Face, open_program
 from .content import ContentInterpreter, Matrix, mat_apply, mat_mul, mat_scale_of
@@ -819,6 +823,10 @@ class PageRasterizer(ContentInterpreter):
         if 45 <= rot < 135 or 225 <= rot < 315:
             img = rotate_expand(np.ascontiguousarray(img), -rot)
         h, w = img.shape[:2]
+        if img.dtype == np.uint16:
+            if (dst_w, dst_h) != (w, h):
+                raise not_ported("16-bit JPX images drawn at another size", "pdfio")
+            img = np.minimum(img, 255).astype(np.uint8)
         rgba = img.ndim == 3 and img.shape[2] == 4
         if (dst_w, dst_h) != (w, h):
             img = np.ascontiguousarray(img)

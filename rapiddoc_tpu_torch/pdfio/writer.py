@@ -3,8 +3,8 @@
 Port of ``rapiddoc_tpu/pdfio/writer.py``: ``PdfWriter`` (:69),
 ``images_to_pdf`` (:115) and ``select_pages`` (:168), with the same
 serialisation, so the same inputs give the same bytes. ``images_to_pdf``
-takes image file bytes (``pdfio.png.decode_image``: PNG and baseline
-JPEG, as PIL opens them) or uint8 arrays, and embeds each image as the
+takes image file bytes (``pdfio.png.decode_image``: PNG, JPEG, BMP,
+GIF, TIFF, WEBP and JPEG 2000, as PIL opens them) or arrays, and embeds each image as the
 JPEG PIL writes at quality 92 (``pdfio.jpeg_encode``): grey for a (H, W)
 array or a mode ``L`` file, RGB otherwise (an alpha channel is dropped,
 as ``convert("RGB")`` drops it).

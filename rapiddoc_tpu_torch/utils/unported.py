@@ -10,7 +10,8 @@ from __future__ import annotations
 # ROADMAP.md, Queue 1: item number and title of each item the port
 # raises for
 ITEMS = {
-    "pdfio": (12, "12f, WEBP, JPX, rare JPEG codings, other filters and image forms"),
+    "pdfio": (12, "12f, rare JPEG codings and TIFF forms, PIL modes, JPX features Pillow "
+                   "does not write"),
     "glyphs": (12, "12c's rest, bitmap-strike faces and complex shaping"),
 }
 

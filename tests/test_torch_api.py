@@ -458,16 +458,28 @@ def test_port_raises_when_the_rec_head_fails(pdf, monkeypatch, error):
 
 
 def test_port_raises_for_inputs_not_ported(tmp_path):
-    """WEBP images and BigTIFF files (ROADMAP item 12f) raise; PNG, JPEG,
-    BMP, GIF and TIFF images, arrays, Office documents and URLs are
-    ported (tests/test_torch_image_inputs.py,
+    """BigTIFF files (ROADMAP item 12f) raise; WEBP files are parsed now
+    (tests/test_torch_webp.py holds them equal to PIL and the JAX
+    package) and a header with no image raises ValueError, as PIL
+    refuses it; PNG, JPEG, BMP, GIF and TIFF images, arrays, Office
+    documents and URLs are ported (tests/test_torch_image_inputs.py,
     tests/test_torch_image_files.py, tests/test_torch_office.py,
     tests/test_torch_data_io.py, against a local server)."""
+    import io
+
+    from PIL import Image
+
     from rapiddoc_tpu_torch import RapidDoc
 
     doc = RapidDoc(device="cpu")
-    with pytest.raises(NotImplementedError, match="WEBP images.*ROADMAP Queue 1 item 12: 12f"):
+    with pytest.raises(ValueError):
         doc(b"RIFF\x10\x00\x00\x00WEBPVP8 " + bytes(8))
+    buf = io.BytesIO()
+    Image.new("RGB", (96, 64), (250, 250, 250)).save(buf, "WEBP", quality=80)
+    (tmp_path / "a.webp").write_bytes(buf.getvalue())
+    with held_env():
+        out = doc(tmp_path / "a.webp")
+    assert len(out.model_json) == 1
     (tmp_path / "a.gif").write_bytes(b"II+\x00" + bytes(16))
     with pytest.raises(NotImplementedError, match="BigTIFF images.*item 12: 12f"):
         doc(tmp_path / "a.gif")

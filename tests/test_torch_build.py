@@ -24,9 +24,16 @@ def csrc(tmp_path, monkeypatch):
 
 
 def test_sources_include_the_shared_header(csrc):
-    assert sorted(p.name for p in csrc.glob("*.cuh")) == ["argmax_head.cuh"]
+    """Each header is included by the sources that share it: the kernels'
+    argmax head, the MQ decoder of the JBIG2 and JPEG 2000 host loops, and
+    the WEBP tables."""
+    assert sorted(p.name for p in csrc.glob("*.cuh")) == [
+        "argmax_head.cuh", "mq_coder.cuh", "webp_tables.cuh"]
     for name in KERNELS:
         assert '#include "argmax_head.cuh"' in (csrc / f"{name}.cu").read_text()
+    for name in ("bilevel", "jpx"):
+        assert build.local_headers(name) == [csrc / "mq_coder.cuh"]
+    assert build.local_headers("webp") == [csrc / "webp_tables.cuh"]
 
 
 @pytest.mark.parametrize("name", KERNELS)

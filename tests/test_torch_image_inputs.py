@@ -5,8 +5,9 @@ against PIL and the JAX package, on the CPU.
   8-bit-or-less depth, with the five row filters mixed per row, a short
   palette and a tRNS chunk: the pixels ``images_to_pdf`` takes (mode
   ``L`` grey, else RGB) equal; 16-bit and interlaced PNGs too (every
-  form in ``tests/test_torch_image_files.py``), while WEBP raises
-  NotImplementedError (ROADMAP item 12f).
+  form in ``tests/test_torch_image_files.py``), while a WEBP header with
+  no image raises ValueError, as PIL refuses it (WEBP files:
+  ``tests/test_torch_webp.py``).
 - ``pdfio/jpeg_encode.py`` at quality 92 and other qualities, RGB and grey
   (mode ``L``): bytes equal to PIL's.
 - ``pdfio/writer.py``: ``images_to_pdf`` of PNG and JPEG files and of
@@ -310,8 +311,10 @@ def test_png_decoder_equals_pil(ctype, depth):
 
 def test_png_inputs_not_ported_raise():
     """16-bit and interlaced PNGs decode as PIL opens them now
-    (``tests/test_torch_image_files.py`` holds every form); WEBP and
-    unknown files still raise, naming ROADMAP item 12f."""
+    (``tests/test_torch_image_files.py`` holds every form); a WEBP
+    header with no image raises ValueError, as PIL refuses it
+    (``tests/test_torch_webp.py`` holds WEBP files), and unknown files
+    still raise, naming ROADMAP item 12f."""
     from PIL import Image
     from torch_image_files import png_bytes
 
@@ -322,10 +325,11 @@ def test_png_inputs_not_ported_raise():
                  png_bytes(rng.integers(0, 255, (5, 6, 3)), 8, 2, interlace=True)):
         want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
         assert np.array_equal(decode_png(data), want)
-    for data, name in ((b"RIFF\0\0\0\0WEBPVP8 ", "WEBP images"),
-                       (b"\x00\x01" + bytes(20), "image files other than")):
-        with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP Queue 1 item 12: 12f"):
-            decode_image(data)
+    with pytest.raises(ValueError):
+        decode_image(b"RIFF\0\0\0\0WEBPVP8 ")
+    with pytest.raises(NotImplementedError,
+                       match="image files other than.*ROADMAP Queue 1 item 12: 12f"):
+        decode_image(b"\x00\x01" + bytes(20))
 
 
 def test_jpeg_encoder_qualities_and_grey_equal_pil():

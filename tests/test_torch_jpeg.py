@@ -12,8 +12,8 @@ sampling, restart markers, optimised tables) and CMYK ones (Adobe,
 inverted as PIL's CMYK;I); and on hand-built streams of forms PIL does
 not write (``tests/torch_jpeg_forms.py``: YCCK, RGB-coded, h1v2, h4v1
 and other samplings). Arithmetic-coded and lossless streams, progressive
-ones that libjpeg would block-smooth, and WEBP files raise
-NotImplementedError; corrupt streams, and scans that name their
+ones that libjpeg would block-smooth raise NotImplementedError (a WEBP
+header with no image, ValueError); corrupt streams, and scans that name their
 components as libjpeg-turbo refuses them, raise JpegError.
 
 The compiled entropy decode (``csrc/jpeg_entropy.cu``) is held to the
@@ -297,13 +297,13 @@ def test_unsupported_streams_raise(kind):
     data = encode(img, quality=90)
     at = data.index(b"\xff\xc0")
     if kind == "gif_file":
-        # GIF files decode as PIL opens them now (pdfio/gif.py); WEBP
-        # files still raise
+        # GIF files decode as PIL opens them now (pdfio/gif.py); a WEBP
+        # header with no image raises ValueError, as PIL refuses it
         buf = io.BytesIO()
         Image.fromarray(img).save(buf, format="GIF")
         want = np.asarray(Image.open(io.BytesIO(buf.getvalue())).convert("RGB"))
         assert np.array_equal(decode_image(buf.getvalue()), want)
-        with pytest.raises(NotImplementedError, match="WEBP images.*ROADMAP Queue 1 item"):
+        with pytest.raises(ValueError):
             decode_image(b"RIFF\0\0\0\0WEBPVP8 ")
         return
     marker = b"\xff\xc9" if kind == "arithmetic" else b"\xff\xc3"

@@ -268,14 +268,25 @@ _OTHER_IMAGE = b"/XObject << /Im0 5 0 R /Im1 20 0 R >>"
 UNSUPPORTED = {
     "bitmap_strike_face": (b"BT /BM 24 Tf 50 150 Td (Hello) Tj ET", {"text": True}),
     "complex_shaping": (b"BT /AR 24 Tf 50 150 Td (AB) Tj ET", {"text": True}),
-    "jpx_image": (b"q 100 0 0 100 40 50 cm /Im1 Do Q",
-                  {"objs": {20: _image_obj(b"/JPXDecode", b"\x00\x00\x00\x0cjP  \r\n\x87\n")}}),
     "arithmetic_jpeg": (b"q 100 0 0 100 40 50 cm /Im1 Do Q",
                         {"objs": {20: _image_obj(b"/DCTDecode", _arithmetic_jpeg())}}),
 }
-# forms that raised before the shadings, patterns and decode arrays were
-# ported; now equal to the JAX package's render
+def _jpx_image() -> bytes:
+    """A 16 x 16 RGB JP2 written by PIL."""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(RGB[:16, :16]).save(buf, format="JPEG2000", irreversible=True)
+    return buf.getvalue()
+
+
+# forms that raised before the shadings, patterns, decode arrays and JPX
+# images were ported; now equal to the JAX package's render
 ONCE_UNSUPPORTED = {
+    "jpx_image": (b"q 100 0 0 100 40 50 cm /Im1 Do Q",
+                  {"objs": {20: _image_obj(b"/JPXDecode", _jpx_image())}}),
     "decode_array": (b"q 300 0 0 200 40 50 cm /Im0 Do Q", {"extra": b"/Decode [1 0 1 0 1 0] "}),
     "shading": (b"q 10 10 200 100 re W n /Sh0 sh Q",
                 {"res": b"/Shading << /Sh0 " + _SHADING + b" >>"}),
@@ -285,13 +296,40 @@ ONCE_UNSUPPORTED = {
 }
 
 
+def _with_image(content: bytes, kw: dict) -> bytes:
+    """The page, with object 20 as a second image XObject /Im1 where the
+    case holds one."""
+    pdf = image_pdf(content, RGB, **kw)
+    if "objs" in kw and 20 in kw["objs"]:
+        pdf = pdf.replace(b"/XObject << /Im0 5 0 R >>", _OTHER_IMAGE)
+    return pdf
+
+
 @pytest.mark.parametrize("name", list(ONCE_UNSUPPORTED))
 @pytest.mark.parametrize("dpi", [200, 72])
 def test_once_unsupported_content_equals_jax(name, dpi):
     content, kw = ONCE_UNSUPPORTED[name]
-    got, want, boxes, jboxes, _ = both(image_pdf(content, RGB, **kw), dpi)
+    got, want, boxes, jboxes, _ = both(_with_image(content, kw), dpi)
     assert np.array_equal(got, want)
     assert boxes == jboxes
+
+
+# images the JAX package cannot decode (its renderer draws nothing there):
+# the port raises ValueError and fails the page
+CORRUPT_IMAGES = {
+    "jpx_header_only": _image_obj(b"/JPXDecode", b"\x00\x00\x00\x0cjP  \r\n\x87\n"),
+}
+
+
+@pytest.mark.parametrize("name", list(CORRUPT_IMAGES))
+def test_corrupt_image_raises(name):
+    from rapiddoc_tpu.pdfio import open_pdf as jax_open_pdf
+    from rapiddoc_tpu.pdfio.render import render_page_full as jax_render
+
+    pdf = _with_image(b"q 100 0 0 100 40 50 cm /Im1 Do Q", {"objs": {20: CORRUPT_IMAGES[name]}})
+    jax_render(jax_open_pdf(pdf).get_page(0), dpi=72, with_text=False)  # draws nothing there
+    with pytest.raises(ValueError):
+        render_page_full(open_pdf(pdf).get_page(0), dpi=72, with_text=False)
 
 
 @pytest.mark.parametrize("name", list(UNSUPPORTED))
