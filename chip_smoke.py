@@ -4135,6 +4135,190 @@ def phase_webp_jpx(card: str) -> dict:
     return counts
 
 
+# ------------------------------------------- the seventeenth slice's path
+
+ACCOUNTING_PAGES = 16  # a window the render pool takes (>= 16 pages)
+
+
+def accounting_pdf() -> bytes:
+    """ACCOUNTING_PAGES pages of the bench's page kinds: the layout
+    fixture's four pages (two formula_dense, two table_heavy) and the
+    OCR fixture's three synth-text pages repeated to fill the rest, so
+    that every program of the main path runs in one window at about the
+    cost of the four-page main_path parse plus twelve OCR pages."""
+    from rapiddoc_tpu_torch.bench import build_pdf, page_images
+
+    layout = page_images(layout_pdf())
+    synth = page_images(asset("ocr_smoke_doc.pdf").read_bytes())
+    rest = ACCOUNTING_PAGES - len(layout)
+    return build_pdf(layout + [synth[i % len(synth)] for i in range(rest)], ACCOUNTING_PAGES)
+
+
+def accounting_fp32_costs(device: str) -> dict:
+    """The fp32 parse (TF32 off) of accounting_pdf() with every stage on
+    (demo layout, formula with the plain head, tables) on ``device``: its
+    FLOPs and calls per program (engine/flops.py cost_report). On the CPU
+    this is the golden, rebuilt by ``python tests/test_torch_flops.py
+    --golden`` (about 3 minutes)."""
+    import torch
+
+    from rapiddoc_tpu_torch import RapidDoc
+    from rapiddoc_tpu_torch.engine import flops
+
+    clean_env()
+    _table_env(False)
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    rapid = RapidDoc(device=device, dtype=torch.float32)
+    pdf = accounting_pdf()
+    flops.reset()
+    out = rapid(pdf, parse_method="ocr")
+    check(len(out.model_json) == ACCOUNTING_PAGES and out.markdown.strip(),
+          "accounting fp32: the parse came back short")
+    return {name: {"flops": c["flops"], "calls": c["calls"]}
+            for name, c in sorted(flops.cost_report().items())}
+
+
+def start_render_pool():
+    """Start the render pool's workers in a thread beside the phases
+    before accounting (spawned processes import the port's pdfio), so that
+    phase accounting finds them up; returns the thread."""
+    import threading
+
+    from rapiddoc_tpu_torch.pdfio import parallel_render
+
+    thread = threading.Thread(target=parallel_render.probe_workers, daemon=True)
+    thread.start()
+    return thread
+
+
+def stop_render_pool(thread) -> None:
+    """Stop the pool's workers (and wait for the start if it runs)."""
+    if thread is None:
+        return
+    from rapiddoc_tpu_torch.pdfio import parallel_render
+
+    thread.join(timeout=300)
+    parallel_render.kill_pool()
+
+
+def phase_accounting(card: str) -> dict:
+    """The FLOP accounting and the render pool on the card, on
+    accounting_pdf()'s 16 pages (one window, through the pool, whose
+    workers start_render_pool started beside the serve phase): the pool's
+    rasters, text dicts and boxes equal the serial render's (sha256), its
+    workers on the compiled host loops as the parent; an fp32 parse (TF32
+    off) through the pool whose FLOPs and calls per program equal the
+    port's CPU golden; one timed bf16 parse with the int8 head (its model
+    stack kept alone, the other phases' dropped, so the reports read its
+    sessions) printing the bench's [session], [mfu], [wire] and [split]
+    reports, K1's
+    launches held to the rec dispatches and K2's to the decode steps. No
+    window may fall back to the serial render. Returns the launches."""
+    import gc
+    import hashlib
+
+    import torch
+
+    from rapiddoc_tpu_torch import RapidDoc
+    from rapiddoc_tpu_torch.api import ModelStack
+    from rapiddoc_tpu_torch.bench import STAGES, accounting
+    from rapiddoc_tpu_torch.config import get_pdf_render_dpi
+    from rapiddoc_tpu_torch.engine import flops
+    from rapiddoc_tpu_torch.engine.session import SessionStats
+    from rapiddoc_tpu_torch.ops import build
+    from rapiddoc_tpu_torch.pdfio import open_pdf, parallel_render, render_page_full
+    from rapiddoc_tpu_torch.utils.trace import GLOBAL_TRACER
+
+    t_phase = time.perf_counter()
+    clean_env()
+    pdf, dpi = accounting_pdf(), get_pdf_render_dpi()
+    idxs = list(range(ACCOUNTING_PAGES))
+    check(parallel_render.concurrency_enabled(len(idxs)), "accounting: the pool is off here")
+    stats = parallel_render.stats
+    fallbacks = stats["fallbacks"]
+
+    def digest(item) -> list:
+        img, tdict, boxes = item
+        return [hashlib.sha256(img.tobytes()).hexdigest(), list(img.shape),
+                json.dumps(tdict, sort_keys=True), json.dumps(boxes)]
+
+    doc = open_pdf(pdf)
+    t0 = time.perf_counter()
+    serial = [digest(render_page_full(doc.get_page(i), dpi=dpi, with_text=True)) for i in idxs]
+    serial_ms = (time.perf_counter() - t0) * 1e3 / len(idxs)
+    t0 = time.perf_counter()
+    pooled = parallel_render.render_pages_parallel(pdf, idxs, dpi, True)
+    pool_ms = (time.perf_counter() - t0) * 1e3 / len(idxs)
+    check([digest((img, t, b)) for img, _, t, b in pooled] == serial,
+          "accounting: the pool's renders differ from the serial render's")
+    check(build.host_compiled(), "accounting: the parent would not run the compiled loops")
+    check(stats["worker_host_compiled"] == {True},
+          f"accounting: the pool's workers ran {stats['worker_host_compiled']} compiled loops")
+    render_s = time.perf_counter() - t_phase
+
+    # the fp32 parse through the pool against the CPU golden
+    t0 = time.perf_counter()
+    windows = stats["windows"]
+    golden = json.loads(asset("accounting_golden.json").read_text())
+    got = accounting_fp32_costs("cuda")
+    check(stats["windows"] == windows + 1, "accounting fp32: the window missed the pool")
+    differ = {k: (got.get(k), v) for k, v in golden["programs"].items() if got.get(k) != v}
+    differ.update({k: (v, None) for k, v in got.items() if k not in golden["programs"]})
+    emit({"phase": "accounting", "path": "fp32", "card": card, "programs": got,
+          "equal_to_cpu_golden": not differ, "render_serial_ms_per_page": serial_ms,
+          "render_pool_ms_per_page": pool_ms, "render_check_seconds": render_s,
+          "fp32_parse_seconds": time.perf_counter() - t0})
+    check(not differ, f"accounting fp32: FLOPs or calls differ from the CPU golden: {differ}")
+
+    # the timed bf16 parse with the int8 head; the reports read every
+    # live session by name, so this parse's model stack is kept alone
+    # (the last phase drops the others) with its counters from zero
+    clean_env()
+    _table_env(True)
+    rapid = RapidDoc(device="cuda")
+    stack = rapid._stack()
+    ModelStack._instances = {k: v for k, v in ModelStack._instances.items() if v is stack}
+    gc.collect()
+    for sess in _sessions():
+        sess.stats = SessionStats()
+    analyzer = stack.analyzer
+    windows = stats["windows"]
+    GLOBAL_TRACER.reset()
+    flops.reset()
+    window = launch_window(analyzer)
+    t0 = time.perf_counter()
+    out = rapid(pdf, parse_method="ocr")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = window()
+    report = GLOBAL_TRACER.report()
+    acc = accounting(report, ACCOUNTING_PAGES, "cuda")
+    check(stats["windows"] == windows + 1, "accounting bf16: the window missed the pool")
+    check(stats["fallbacks"] == fallbacks,
+          f"accounting: {stats['fallbacks'] - fallbacks} windows fell back to the serial render")
+    emit({"phase": "accounting", "path": "bf16_int8", "card": card, "pages": ACCOUNTING_PAGES,
+          "pages_per_s": ACCOUNTING_PAGES / wall, "launches": counts,
+          "compiles_in_the_timed_parse": sum(s.stats.compiles for s in _sessions()),
+          "stage_ms_per_page": {k: report[k]["total_s"] * 1e3 / ACCOUNTING_PAGES
+                                for k in STAGES if k in report},
+          "mfu": acc["mfu"], "wire": acc["wire"], "split": acc["split"],
+          "session_stats": acc["session_stats"], "phase_seconds": time.perf_counter() - t_phase})
+    check(out.markdown.strip() != "", "accounting bf16: an empty Markdown")
+    check(acc["mfu"]["total_gflops"] > 0 and acc["mfu"]["mfu_total"] is not None,
+          "accounting bf16: no FLOPs or no MFU for the card")
+    check_launches(counts, "accounting", need_k2=True)
+    clean_env()
+    return counts
+
+
+def _sessions():
+    from rapiddoc_tpu_torch.engine.session import live_sessions
+
+    return live_sessions()
+
+
 def main() -> int:
     try:
         import torch
@@ -4152,6 +4336,7 @@ def main() -> int:
     seconds: dict[str, float] = {}
     t_all = time.perf_counter()
     files = None  # the published phase's files, written beside the earlier phases
+    pool = None  # the render pool's start, beside the earlier phases
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
@@ -4188,14 +4373,17 @@ def main() -> int:
         codec_launches = timed("codecs", phase_codecs, card)
         webp_jpx_counts = timed("webp_jpx", phase_webp_jpx, card)
         timed("office", phase_office, card)
+        pool = start_render_pool()
         serve_counts = timed("serve", phase_serve, card)
         cli_counts = timed("cli", phase_cli, card)
+        accounting_counts = timed("accounting", phase_accounting, card)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     finally:
         if files is not None:
             stop_published_files(files)
+        stop_render_pool(pool)
     emit({"phase": "timing", "seconds_by_phase": seconds,
           "total_seconds": time.perf_counter() - t_all})
     k1 = k1_all[VOCABS[0]]
@@ -4226,7 +4414,8 @@ def main() -> int:
                              "published": published["ctc_head"],
                              "codecs": codec_launches, "webp_jpx": webp_jpx_counts["ctc_head"],
                              "serve": serve_counts["ctc_head"],
-                             "cli": cli_counts["ctc_head"]},
+                             "cli": cli_counts["ctc_head"],
+                             "accounting": accounting_counts["ctc_head"]},
         "max_abs_err": k1["max_abs_err"],
         "max_rel_err": k1["max_rel_err"], "matches_plain": True,
         "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
@@ -4251,7 +4440,8 @@ def main() -> int:
                              "text": text_counts["quant_head"],
                              "webp_jpx": webp_jpx_counts["quant_head"],
                              "serve": serve_counts["quant_head"],
-                             "cli": cli_counts["quant_head"]},
+                             "cli": cli_counts["quant_head"],
+                             "accounting": accounting_counts["quant_head"]},
         "max_abs_err": k2["max_abs_err"],
         "max_rel_err": k2["max_rel_err"], "matches_plain": True,
         "ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"],

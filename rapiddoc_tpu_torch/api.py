@@ -19,8 +19,11 @@ The window loop, its render-ahead and assembly threads, the
 (when there is more than one window and no checkpoint dir: the windows
 that wait for a flush are assembled after it, in order) and the
 outputs are the JAX package's; the port adds its ``device`` (the card by
-default) and ``dtype`` (bf16 by default) arguments. Windows render
-serially (the JAX package's process pool renders the same pages).
+default) and ``dtype`` (bf16 by default) arguments. A window of 16
+pages or more renders through the process pool
+(``pdfio/parallel_render.py``), as in the JAX package: byte-equal to the
+serial render; a fault of the pool or its timeout is logged and the
+window renders serially.
 
 Image inputs (a PNG, JPEG, BMP, GIF, TIFF or WEBP path or bytes, an array of
 any type ``Image.fromarray`` takes, or an image object with
@@ -83,6 +86,7 @@ from .data.io import (
     DataWriter, FanoutDataWriter, FileBasedDataWriter, MemoryDataWriter, http_get,
 )
 from .engine.session import resolve_device
+from .pdfio import parallel_render
 from .pdfio.images import to_rgb, xobject_to_array
 from .pdfio.placements import original_image_streams
 from .pdfio.pil_modes import is_image_object
@@ -339,6 +343,27 @@ class RapidDoc:
             """Render one window of pages (host work, overlappable)."""
             idxs = list(range(start, min(start + window, n_pages)))
             w_imgs, w_text, w_boxes, dims = [], [], [], []
+            if parallel_render.concurrency_enabled(len(idxs)):
+                # large windows fan out across the process pool (the
+                # rasterizer is GIL-bound); a page's own error raises
+                try:
+                    with stage_timer("render", len(idxs)):
+                        items = parallel_render.render_pages_parallel(
+                            pdf_bytes, idxs, dpi, parse_method == "txt")
+                except parallel_render.PoolFault:
+                    parallel_render.stats["fallbacks"] += 1
+                    logger.exception("parallel render failed; falling back to serial")
+                else:
+                    for item in items:
+                        if item is None:
+                            item = (np.full((int(792 * scale), int(612 * scale), 3), 255,
+                                            np.uint8), (612.0, 792.0), None, [])
+                        img, size, tdict, boxes = item
+                        w_imgs.append(img)
+                        w_text.append(tdict)
+                        w_boxes.append(boxes)
+                        dims.append(size)
+                    return w_imgs, w_text, w_boxes, dims
             with stage_timer("render", len(idxs)):
                 for i in idxs:
                     try:

@@ -23,17 +23,27 @@ real English and CJK pages are not in the repository. ``--int8-head``
 sets ``RAPIDDOC_INT8_HEAD=1``, which sends every formula decode step
 through kernel K2.
 
-One warm-up pass, two timed passes, then one pass under
-``torch.profiler`` for the device's busy share (kernel time over wall
-time; not counted in pages/s). Prints the card's name and power limit,
+Warm-up passes until no session adds a compile (a new bucket signature,
+at most three passes, as ``bench.py``), two timed passes (under
+``utils.trace.maybe_profile``: a Chrome trace when
+``RAPIDDOC_PROFILE_DIR`` is set), then one pass under ``torch.profiler``
+for the device's busy share (kernel time over wall time; not counted in
+pages/s). On standard error, as ``bench.py`` prints them: a ``[session]``
+line per session, ``[mfu]`` (``engine/flops.py``'s per-stage GFLOPs,
+achieved TFLOP/s, MFU against the card's peak and
+``compute_bound_ms_per_page``, through ``bench.py``'s program-to-stage
+map), ``[wire]`` and a ``[split]`` line per session (estimated transfer
+time capped at the stage's wall). Prints the card's name and power limit,
 then one JSON line with ``bench.py``'s keys: ``pages_per_sec`` (and each
 run's), ``stage_ms_per_page`` (render, layout, ocr_det, ocr_crop,
 ocr_rec, formula, table, assembly, assembly_final, and ocr, which holds
 det, crop and rec), ``ocr_rec_detail`` (crops, session calls, crops/s, K1
 launches), ``formula_detail`` (regions, decode dispatches and steps, K2
 launches), ``table_detail`` (tables, UNet calls and crops, SLANet and
-UniTable decode dispatches and steps) and ``device_busy_share``. On the CPU (``--device cpu``) it
-runs the same path for rehearsal and reports no device numbers.
+UniTable decode dispatches and steps), ``mfu`` (the ``[mfu]`` report of
+the last timed pass), ``session_stats`` and ``device_busy_share``. On
+the CPU (``--device cpu``) it runs the same path for rehearsal and
+reports no device numbers (``mfu`` None).
 """
 from __future__ import annotations
 
@@ -41,10 +51,9 @@ import argparse
 import json
 import os
 import subprocess
+import sys
 import time
 from pathlib import Path
-
-import torch
 
 ASSETS = Path(__file__).resolve().parent / "assets"
 PDF = ASSETS / "ocr_smoke_doc.pdf"
@@ -53,6 +62,19 @@ STAGES = ("render", "layout", "ocr_det", "ocr_crop", "ocr_rec", "ocr", "formula"
           "table", "assembly", "assembly_final")
 # layout_smoke_doc.pdf's pages by kind (tests/test_torch_pipeline_layout.py)
 LAYOUT_KINDS = {"formula_dense": (0, 1), "table_heavy": (2, 3)}
+# program name (engine/flops.py) -> tracer stage, bench.py's _PROGRAM_STAGE
+PROGRAM_STAGE = {
+    "layout": "layout",
+    "ocr_det": "ocr_det",
+    "ocr_rec": "ocr_rec",
+    "formula": "formula",
+    "table_unitable": "table",
+    "table_slanet": "table",
+    "table_unet": "table",
+    "table_cls": "table",
+    "orientation": "orientation",
+}
+WARMUP_PASSES = 3  # at most, until no session adds a compile
 
 
 def page_images(pdf: bytes) -> list[tuple[bytes, int, int, str]]:
@@ -155,6 +177,7 @@ def card() -> str:
 
 def device_busy_share(fn) -> tuple[float, float]:
     """(device kernel ms, wall ms) of one traced call of ``fn``."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -183,13 +206,84 @@ def table_counts(table) -> dict[str, int]:
     return out
 
 
-def run(n_pages: int, device: str, dtype: torch.dtype, runs: int = 2,
+def warm_up(parse) -> tuple[float, int]:
+    """Parse until no session adds a compile (a bucket signature it had
+    not dispatched), at most WARMUP_PASSES times, as ``bench.py`` warms
+    up: a first dispatch inside a timed pass would count its FLOPs there.
+    Returns (seconds, passes)."""
+    from .engine.session import session_stats_report
+
+    t0 = time.perf_counter()
+    compiles = -1
+    for n in range(1, WARMUP_PASSES + 1):
+        parse()
+        now = sum(s["compiles"] for s in session_stats_report().values())
+        if now == compiles:
+            break
+        compiles = now
+    return time.perf_counter() - t0, n
+
+
+def transfer_split(stage_wall_ms: dict[str, float]) -> dict:
+    """``bench.py``'s ``_transfer_split``: each session's serialized
+    transfer estimate capped at its stage's measured wall, the overlap
+    reported beside it."""
+    from .engine.session import transfer_split_report
+
+    out = {}
+    for name, tr in transfer_split_report().items():
+        wall, est = stage_wall_ms.get(name), tr["transfer_ms_est"]
+        if wall is None or est is None:
+            out[name] = {**tr, "note": "no stage wall measured" if wall is None else "no card"}
+            continue
+        transfer = min(est, wall)
+        out[name] = {"stage_wall_ms": wall, "transfer_ms": transfer,
+                     "compute_ms": wall - transfer, "overlapped_ms": max(est - wall, 0.0),
+                     "bytes_in": tr["bytes_in"], "bytes_out": tr["bytes_out"],
+                     "fetches": tr["fetches"]}
+    return out
+
+
+def accounting(report: dict, n_pages: int, device) -> dict:
+    """The accounting of one pass (``report``: the tracer's) over
+    ``n_pages``, printed as ``bench.py`` prints it on standard error: a
+    ``[session]`` line per session, ``[mfu]`` (``engine/flops.py``'s
+    report through PROGRAM_STAGE, with compute_bound_ms_per_page),
+    ``[wire]`` and ``[split]``. Returns {"mfu", "session_stats", "wire",
+    "split"}."""
+    from .engine import flops
+    from .engine.session import measure_wire_bandwidth, session_stats_report
+
+    sessions = session_stats_report()
+    for name, st in sessions.items():
+        print(f"[session] {name}: calls={st['calls']} in={st['bytes_in'] / 1e6:.1f}MB "
+              f"out={st['bytes_out'] / 1e6:.1f}MB compiles={st['compiles']} "
+              f"pad_overhead={st['pad_overhead']:.3f}", file=sys.stderr)
+    stage_wall_s = {stage: report.get(stage, {}).get("total_s", 0.0)
+                    for stage in set(PROGRAM_STAGE.values())}
+    mfu = flops.mfu_report(stage_wall_s, PROGRAM_STAGE, device=device)
+    for d in mfu["stages"].values():
+        ms = d["compute_bound_ms"]
+        d["compute_bound_ms_per_page"] = ms / n_pages if ms is not None else None
+    print(f"[mfu] {json.dumps(mfu)}", file=sys.stderr)
+    wire = measure_wire_bandwidth()
+    print(f"[wire] {wire}", file=sys.stderr)
+    split = transfer_split({k: v.get("total_s", 0.0) * 1e3 for k, v in report.items()})
+    for name, tr in split.items():
+        print(f"[split] {name}: {tr}", file=sys.stderr)
+    return {"mfu": mfu, "session_stats": sessions, "wire": wire, "split": split}
+
+
+def run(n_pages: int, device: str, dtype, runs: int = 2,
         corpus: str = "ocr", int8_head: bool = False) -> dict:
+    import torch
+
     set_corpus_env(corpus, int8_head)
     from . import RapidDoc
+    from .engine import flops
     from .ops.ctc_head import fused_ctc_argmax
     from .ops.quant_head import fused_argmax_int8
-    from .utils.trace import GLOBAL_TRACER
+    from .utils.trace import GLOBAL_TRACER, maybe_profile
 
     pdf, counts = corpus_pdf(corpus, n_pages)
     n_pages = sum(counts.values())
@@ -202,26 +296,30 @@ def run(n_pages: int, device: str, dtype: torch.dtype, runs: int = 2,
             torch.cuda.synchronize()
         return out
 
-    t0 = time.perf_counter()
-    parse()  # warm-up: model build, kernel builds, cuDNN's algorithm picks
-    warmup_s = time.perf_counter() - t0
+    # model build, kernel builds, cuDNN's algorithm picks, every bucket
+    warmup_s, warmup_passes = warm_up(parse)
     analyzer = doc._stack().analyzer
     rec = analyzer.ocr.recognizer.session.stats
     formula = analyzer.formula_model.stats if analyzer.formula_model is not None else None
     table = analyzer.table_model
     walls = []
-    for _ in range(runs):
-        GLOBAL_TRACER.reset()
-        crops0, calls0, launches0 = rec.items, rec.calls, fused_ctc_argmax.launches
-        k2_0 = fused_argmax_int8.launches
-        f0 = (formula.dispatches, formula.decode_steps) if formula else (0, 0)
-        t0_table = table_counts(table)
-        t0 = time.perf_counter()
-        out = parse()
-        walls.append(time.perf_counter() - t0)
-        if not out.markdown:
-            raise RuntimeError("the parse produced no Markdown")
+    with maybe_profile():
+        for _ in range(runs):
+            GLOBAL_TRACER.reset()
+            flops.reset()
+            crops0, calls0, launches0 = rec.items, rec.calls, fused_ctc_argmax.launches
+            k2_0 = fused_argmax_int8.launches
+            f0 = (formula.dispatches, formula.decode_steps) if formula else (0, 0)
+            t0_table = table_counts(table)
+            t0 = time.perf_counter()
+            out = parse()
+            walls.append(time.perf_counter() - t0)
+            if not out.markdown:
+                raise RuntimeError("the parse produced no Markdown")
     report = GLOBAL_TRACER.report()
+    for k, v in report.items():
+        print(f"[stage] {k}: {v}", file=sys.stderr)
+    acc = accounting(report, n_pages, device)
     crops, calls = rec.items - crops0, rec.calls - calls0
     rec_s = report.get("ocr_rec", {}).get("total_s", 0.0)
     result = {
@@ -230,7 +328,7 @@ def run(n_pages: int, device: str, dtype: torch.dtype, runs: int = 2,
         "pages": n_pages,
         "pages_per_sec": n_pages * len(walls) / sum(walls),
         "pages_per_sec_runs": [n_pages / w for w in walls],
-        "warmup_s": warmup_s,
+        "warmup_s": warmup_s, "warmup_passes": warmup_passes,
         "stage_ms_per_page": {
             k: report[k]["total_s"] * 1e3 / n_pages for k in STAGES if k in report
         },
@@ -239,6 +337,7 @@ def run(n_pages: int, device: str, dtype: torch.dtype, runs: int = 2,
             "crops_per_sec": crops / rec_s if rec_s else None,
             "ctc_head_launches": fused_ctc_argmax.launches - launches0,
         },
+        "mfu": acc["mfu"], "session_stats": acc["session_stats"],
         "device": str(torch.device(device)), "dtype": str(dtype).removeprefix("torch."),
     }
     if formula is not None:
@@ -266,6 +365,8 @@ def run(n_pages: int, device: str, dtype: torch.dtype, runs: int = 2,
 
 
 def main() -> None:
+    import torch
+
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--corpus", choices=("ocr", "layout"), default="ocr")
     ap.add_argument("--pages", type=int, default=56)

@@ -41,8 +41,9 @@ values and dtypes:
   truncation), carried values are cast back to their first dtype each
   step, and the exit condition is read on the host each step.
 
-The JAX interpreter's FLOP accounting (``engine/flops.track``) is ROADMAP
-Queue 1 item 14 and is not ported.
+Each call is the program ``onnx`` of the FLOP accounting
+(``engine/flops.py``), one signature per set of input names, shapes and
+dtypes, as the JAX interpreter tracks it.
 """
 from __future__ import annotations
 
@@ -54,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from ..tools.onnx_reader import OnnxModel, read_onnx_model
+from . import flops
 from .session import resolve_device
 
 _ONNX_DTYPES = {
@@ -1209,6 +1211,13 @@ class OnnxTorchFunction:
         return self.model.input_names
 
     def __call__(self, *arrays) -> list[np.ndarray]:
+        key = tuple((n, tuple(v.shape), str(v.dtype)) if isinstance(v, torch.Tensor)
+                    else (n, tuple(np.shape(v)), str(np.asarray(v).dtype))
+                    for n, v in zip(self.model.input_names, arrays))
+        return flops.track(getattr(self, "name", "onnx"), self._run, arrays, sig=key,
+                           weights=self.params)
+
+    def _run(self, *arrays) -> list[np.ndarray]:
         with torch.inference_mode():
             inputs = {}
             for k, v in zip(self.model.input_names, arrays):

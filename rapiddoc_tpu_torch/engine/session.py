@@ -6,23 +6,33 @@ model forward over bucket-padded NHWC batches, with the same
 Weights go to the device once, in the policy dtype (bf16 unless the
 caller asks for another, as ``commit_params`` does). ``preproc`` runs on
 the device before the compute-dtype cast, so callers ship uint8 (or
-packed 4-bit) batches. PyTorch runs eagerly: there is no per-bucket
-compile, and no CUDA graph yet.
+packed 4-bit) batches. PyTorch runs eagerly, so nothing is compiled
+per bucket; the first dispatch of each bucket signature stands in for
+the JAX compile: ``SessionStats.compiles`` counts it, and the first
+dispatch of a signature in the process counts the bucket's cost
+(``engine/flops.py``). No CUDA graph yet. ``session_stats_report``,
+``measure_wire_bandwidth`` and ``transfer_split_report`` are the JAX
+package's (``:136-213``).
 """
 from __future__ import annotations
 
 import os
+import threading
+import time
+import weakref
 from dataclasses import dataclass
 from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
 
+from . import flops
 from .buckets import BucketSpec
 
 
 @dataclass
 class SessionStats:
+    compiles: int = 0
     calls: int = 0
     items: int = 0
     padded_items: int = 0
@@ -32,6 +42,7 @@ class SessionStats:
 
     def as_dict(self) -> dict:
         return {
+            "compiles": self.compiles,
             "calls": self.calls,
             "items": self.items,
             "padded_items": self.padded_items,
@@ -58,6 +69,89 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+# every live TorchSession, oldest first (weak: a dropped model stack
+# takes its sessions with it)
+_ALL_SESSIONS: list[weakref.ref] = []
+
+
+def live_sessions() -> list["TorchSession"]:
+    alive = [s for s in (r() for r in _ALL_SESSIONS) if s is not None]
+    _ALL_SESSIONS[:] = [weakref.ref(s) for s in alive]
+    return alive
+
+
+def session_stats_report() -> dict[str, dict]:
+    """Transfer and compile accounting of every live TorchSession, by
+    name (a later session of one name wins, as in the JAX package)."""
+    return {s.name: s.stats.as_dict() for s in live_sessions()}
+
+
+_WIRE_BW: dict | None = None
+
+
+def _timed(fn) -> float:
+    tic = time.perf_counter()
+    fn()
+    return time.perf_counter() - tic
+
+
+def measure_wire_bandwidth(size_mb: int = 8, iters: int = 3) -> dict:
+    """One-shot host<->card calibration (cached): pinned host-to-device
+    and device-to-host MB/s of a bulk uint8 buffer (a fresh device tensor
+    each iteration) and the round trip of a tiny one, each copy closed by
+    ``torch.cuda.synchronize()``. With these constants and the byte
+    counters of SessionStats the bench splits stage walls into transfer
+    and compute. Without a card every value is None."""
+    global _WIRE_BW
+    if _WIRE_BW is not None:
+        return _WIRE_BW
+    if not torch.cuda.is_available():
+        _WIRE_BW = {"h2d_mb_per_s": None, "d2h_mb_per_s": None, "roundtrip_ms": None}
+        return _WIRE_BW
+    n = size_mb << 20
+    sync = torch.cuda.synchronize
+    host = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 255, n, dtype=np.uint8)).pin_memory()
+    dev = host.to("cuda")
+    sync()
+    h2d = min(_timed(lambda: (host.to("cuda", non_blocking=True), sync()))
+              for _ in range(iters))
+    d2h, rt = [], []
+    tiny = torch.zeros(8, dtype=torch.uint8, device="cuda")
+    for i in range(iters):
+        fresh = dev + (i + 1)
+        small = tiny + (i + 1)
+        sync()
+        d2h.append(_timed(lambda: (fresh.cpu(), sync())))
+        rt.append(_timed(lambda: (small.cpu(), sync())))
+    _WIRE_BW = {
+        "h2d_mb_per_s": size_mb / max(h2d, 1e-9),
+        "d2h_mb_per_s": size_mb / max(min(d2h), 1e-9),
+        "roundtrip_ms": min(rt) * 1e3,
+    }
+    return _WIRE_BW
+
+
+def transfer_split_report() -> dict[str, dict]:
+    """Per-session estimated transfer cost from the measured wire
+    constants times the byte counters: {session: {transfer_ms_est,
+    bytes_in, bytes_out, fetches}}. transfer_ms_est is a serialized upper
+    bound (transfers overlap compute, so a stage's wall can be below it;
+    the bench caps it at the wall); None without a card."""
+    bw = measure_wire_bandwidth()
+    out = {}
+    for s in live_sessions():
+        st = s.stats
+        ms = None
+        if bw["h2d_mb_per_s"] is not None:
+            ms = (st.bytes_in / (1 << 20) / bw["h2d_mb_per_s"] * 1e3
+                  + st.bytes_out / (1 << 20) / bw["d2h_mb_per_s"] * 1e3
+                  + st.fetches * bw["roundtrip_ms"])
+        out[s.name] = {"transfer_ms_est": ms, "bytes_in": st.bytes_in,
+                       "bytes_out": st.bytes_out, "fetches": st.fetches}
+    return out
 
 
 def _map(fn, tree):
@@ -101,6 +195,9 @@ class TorchSession:
         self.preproc = preproc
         self.stats = SessionStats()
         self.module = module.to(device=self.device, dtype=self.compute_dtype).eval()
+        self._seen: set[tuple] = set()  # bucket signatures dispatched
+        self._lock = threading.Lock()
+        _ALL_SESSIONS.append(weakref.ref(self))
 
     @torch.no_grad()
     def dispatch(self, batch_nhwc: np.ndarray) -> tuple[Any, int, "TorchSession"]:
@@ -121,15 +218,15 @@ class TorchSession:
         if nb != n:
             pad = np.zeros((nb - n,) + batch_nhwc.shape[1:], batch_nhwc.dtype)
             batch_nhwc = np.concatenate([batch_nhwc, pad], axis=0)
-        x = torch.from_numpy(np.ascontiguousarray(batch_nhwc))
-        if self.device.type == "cuda":
-            x = x.pin_memory().to(self.device, non_blocking=True)
-        if self.preproc is not None:
-            x = self.preproc(x)
-        out = self.apply_fn(self.module, x.to(self.compute_dtype))
-        out = _map(
-            lambda a: a.float() if a.is_floating_point() else a, out
-        )
+        key = (nb, *batch_nhwc.shape[1:], str(batch_nhwc.dtype))
+        with self._lock:
+            if key not in self._seen:
+                self._seen.add(key)
+                self.stats.compiles += 1
+        # the bucket's cost is counted on the first dispatch of its
+        # signature in the process (engine/flops.py)
+        out = flops.track(self.name, self._forward, (batch_nhwc,),
+                          sig=key + (str(self.compute_dtype),), weights=self.module)
         self.stats.calls += 1
         self.stats.items += n
         self.stats.padded_items += nb
@@ -137,6 +234,15 @@ class TorchSession:
         for leaf in _leaves(out):
             self.stats.bytes_out += leaf.numel() * leaf.element_size() * n // nb
         return out, n, self
+
+    def _forward(self, batch_nhwc: np.ndarray) -> Any:
+        x = torch.from_numpy(np.ascontiguousarray(batch_nhwc))
+        if self.device.type == "cuda":
+            x = x.pin_memory().to(self.device, non_blocking=True)
+        if self.preproc is not None:
+            x = self.preproc(x)
+        out = self.apply_fn(self.module, x.to(self.compute_dtype))
+        return _map(lambda a: a.float() if a.is_floating_point() else a, out)
 
     @staticmethod
     def fetch(handle: tuple) -> Any:

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...engine import flops
 from ...engine.done_flag import DoneFlag
 from ...ops.quant_head import fused_argmax_int8
 
@@ -223,12 +224,15 @@ def greedy_decode(
     flag = DoneFlag(dev)
     steps = 0
     for step in range(max_len):
-        out, _, _ = decoder(cur, caches_k, caches_v, step, mem_k, mem_v, mem_mask,
-                            skip_lm_head=int8_head is not None)
-        if int8_head is not None:
-            nxt, _conf = argmax_int8(out[:, -1], wq_head, head_scale, head_bias)
-        else:
-            nxt = torch.argmax(out[:, -1].float(), dim=-1)
+        # a counting pass (engine/flops.py) takes the first step only, as
+        # XLA counts the JAX loop's body once
+        with flops.uncounted(step > 0):
+            out, _, _ = decoder(cur, caches_k, caches_v, step, mem_k, mem_v, mem_mask,
+                                skip_lm_head=int8_head is not None)
+            if int8_head is not None:
+                nxt, _conf = argmax_int8(out[:, -1], wq_head, head_scale, head_bias)
+            else:
+                nxt = torch.argmax(out[:, -1].float(), dim=-1)
         nxt = torch.where(done, pad, nxt.to(torch.int32))
         tokens[:, step] = nxt
         lengths = torch.where(done, lengths, step + 1)

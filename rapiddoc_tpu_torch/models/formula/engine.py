@@ -7,8 +7,10 @@ decode per (image bucket, batch chunk). OpenCV's grey conversion and
 INTER_LINEAR resize are the port's bit-equal numpy versions
 (``models/ocr/pre_post.py``). The published checkpoint's ids are decoded
 by ``FormulaTokenizer``, a replay of the HF ``tokenizers`` package
-(``utils/hf_tokenizer.py``); the FLOP accounting (``engine.flops.track*``)
-is not ported yet.
+(``utils/hf_tokenizer.py``). Each dispatch is the program ``formula`` of
+the FLOP accounting (``engine/flops.py``: one signature per image
+bucket, batch and ``max_len``; the decode's realized steps through
+``track_ar_extra``).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ...engine import flops
 from ...engine.buckets import batch_chunks, pad_rows
 from ...engine.session import resolve_device
 from ...ops.layout import aligned_rows
@@ -200,6 +203,12 @@ class FormulaRecognizer:
         self.tokenizer: DemoFormulaVocab | FormulaTokenizer | None = None
         self.stats = FormulaStats()
         self._int8_head_cache: tuple[torch.Tensor, torch.Tensor] | None = None
+        # decoder weight census for the AR accounting (engine/flops.py
+        # track_ar_extra), over the JAX package's leaves ("decoder"): per
+        # decode step every decoder weight is read once and contributes
+        # about 2 FLOPs per sample
+        self._dec_params = float(sum(p.numel() for p in self.decoder.parameters()))
+        self._dec_param_bytes = float(flops.nbytes(self.decoder))
 
     def _int8_head(self) -> tuple[torch.Tensor, torch.Tensor] | None:
         """The committed lm_head (rounded to the compute dtype), quantized
@@ -235,6 +244,9 @@ class FormulaRecognizer:
         self.stats.decode_steps += steps
         return tokens, lengths
 
+    def _encode_decode(self, batch: np.ndarray, max_len: int):
+        return self.decode(self.encode(self.to_device(batch)), max_len)
+
     def to_device(self, batch: np.ndarray) -> torch.Tensor:
         x = torch.from_numpy(np.ascontiguousarray(batch))
         if self.device.type == "cuda":
@@ -268,15 +280,21 @@ class FormulaRecognizer:
             return []
         max_len = length_bucket or self.config.default_length_bucket
         handles = []
+        weights = (self.encoder, self.decoder, self.mem_proj)
         for idxs, batch in self.chunks(crops):
-            memory = self.encode(self.to_device(batch))
-            handles.append((idxs, self.decode(memory, max_len)))
+            handles.append((idxs, flops.track(
+                "formula", self._encode_decode, (batch, max_len),
+                sig=(batch.shape, str(batch.dtype), max_len, str(self.dtype)),
+                weights=weights)))
         out: list = [""] * len(crops)
         eos = self.mbart_cfg.eos_token_id
         for idxs, (tokens, lengths) in handles:
             tokens = tokens.cpu().numpy()
             lengths = lengths.cpu().numpy()
             self.stats.realized_steps += int(lengths.max())
+            flops.track_ar_extra("formula", steps=float(lengths.max()),
+                                 batch=int(tokens.shape[0]), dec_params=self._dec_params,
+                                 dec_param_bytes=self._dec_param_bytes)
             for j, i in enumerate(idxs):
                 n_tok = int(lengths[j])
                 # strip the terminator only when one was emitted: a decode

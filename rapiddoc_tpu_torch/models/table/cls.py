@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...engine import flops
 from ...engine.session import resolve_device
 from ...utils.morph import adaptive_threshold_mean, morph_open_rect
 from ..common.layers import ConvBNAct
@@ -65,9 +66,14 @@ class TableClassifier:
                 [batch, np.zeros((nb - n, *batch.shape[1:]), batch.dtype)]
             )
         x = torch.from_numpy(batch).to(self.device)
+        probs = flops.track("table_cls", self._probs, (x,),
+                            sig=(tuple(x.shape), str(x.dtype), str(self.dtype)),
+                            weights=self.model)
+        return probs[:n].cpu().numpy()
+
+    def _probs(self, x: torch.Tensor) -> torch.Tensor:
         x = (x.float() / 255.0).to(torch.bfloat16).to(self.dtype).permute(0, 3, 1, 2)
-        logits = self.model(x).float()
-        return torch.softmax(logits, dim=-1)[:n].cpu().numpy()
+        return torch.softmax(self.model(x).float(), dim=-1)
 
     def __call__(self, imgs: list[np.ndarray]) -> list[str]:
         """Returns 'wired' | 'wireless' per table crop."""

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...engine import flops
 from ...engine.buckets import batch_chunks, pad_rows
 from ...engine.done_flag import DoneFlag
 from ...engine.session import resolve_device
@@ -198,7 +199,8 @@ def sla_decode(step: SLAHeadStep, fea_key_mod: FeaKey, fea: torch.Tensor,
     flag = DoneFlag(dev)
     steps = 0
     for i in range(max_steps):
-        hidden, logits, loc = step(hidden, cur, fea, fea_key)
+        with flops.uncounted(i > 0):  # a counting pass takes the first step only
+            hidden, logits, loc = step(hidden, cur, fea, fea_key)
         nxt = torch.where(done, eos, torch.argmax(logits.float(), dim=-1))
         tokens[:, i] = nxt.to(torch.int32)
         locs[:, i] = torch.where(done[:, None], 0.0, loc)
@@ -250,6 +252,15 @@ class SLANetStructure:
         self._std = torch.from_numpy(IMAGENET_STD).to(self.device)
         self.calls = 0
         self.decode_steps = 0
+        # per-step weight census for the AR accounting (engine/flops.py
+        # track_ar_extra), over the JAX package's leaves ("step"): flax's
+        # GRUCell has no hidden bias for its r and z gates, which torch's
+        # GRUCell holds at zero
+        step = self.model.step
+        no_leaf = 2 * step.hidden
+        self._step_params = float(sum(p.numel() for p in step.parameters()) - no_leaf)
+        self._step_param_bytes = float(flops.nbytes(step)
+                                       - no_leaf * step.gru.bias_hh.element_size())
 
     @staticmethod
     def preprocess(img: np.ndarray) -> np.ndarray:
@@ -290,7 +301,13 @@ class SLANetStructure:
         parts = []
         for s, e, padded in batch_chunks(len(imgs), sizes=(4, 16)):
             batch = torch.from_numpy(pad_rows(all_imgs[s:e], padded)).to(self.device)
-            t, l, n = (a.cpu().numpy() for a in self.run(batch))
+            out = flops.track("table_slanet", self.run, (batch,),
+                              sig=(tuple(batch.shape), str(batch.dtype), str(self.dtype)),
+                              weights=self.model)
+            t, l, n = (a.cpu().numpy() for a in out)
+            flops.track_ar_extra("table_slanet", steps=float(n.max()), batch=int(t.shape[0]),
+                                 dec_params=self._step_params,
+                                 dec_param_bytes=self._step_param_bytes)
             parts.append((t[: e - s], l[: e - s], n[: e - s]))
         tokens = np.concatenate([p[0] for p in parts])
         locs = np.concatenate([p[1] for p in parts])

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...engine import flops
 from ...engine.buckets import batch_chunks, pad_rows
 from ...engine.session import resolve_device
 from ...utils.morph import connected_components_with_stats, dilate3x3
@@ -207,7 +208,10 @@ class WiredTableStructure:
             batch = torch.from_numpy(pad_rows(np.stack(prepped[s:e]), padded))
             if self.device.type == "cuda":
                 batch = batch.pin_memory().to(self.device, non_blocking=True)
-            handles.append((self.forward_bits(batch), e - s))
+            bits = flops.track("table_unet", self.forward_bits, (batch,),
+                               sig=(tuple(batch.shape), str(batch.dtype), str(self.dtype)),
+                               weights=self.model)
+            handles.append((bits, e - s))
             self.calls += 1
             self.items += e - s
         return handles

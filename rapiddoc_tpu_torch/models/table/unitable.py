@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...engine import flops
 from ...engine.buckets import batch_chunks, pad_rows
 from ...engine.done_flag import DoneFlag
 from ...config import get_models_dir
@@ -291,7 +292,8 @@ def unitable_decode(decoder: GPTFastDecoder, mem_proj: MemoryProjector,
     flag = DoneFlag(dev)
     steps = 0
     for step in range(max_len):
-        logits = decoder(cur, caches_k, caches_v, step, mem_k, mem_v, None)
+        with flops.uncounted(step > 0):  # a counting pass takes the first step only
+            logits = decoder(cur, caches_k, caches_v, step, mem_k, mem_v, None)
         nxt = torch.argmax(logits[:, -1].float() + wl[None], dim=-1)
         is_bbox = (nxt >= BBOX_BASE) & (nxt < BBOX_BASE + N_BBOX_BINS)
         bbox_run = torch.where(is_bbox, bbox_run + 1, 0)
@@ -340,6 +342,10 @@ class UniTableStructure:
         self._std = torch.from_numpy(UNITABLE_STD).to(self.device)
         self.calls = 0
         self.decode_steps = 0
+        # decoder weight census for the AR accounting (engine/flops.py
+        # track_ar_extra), over the JAX package's leaves ("decoder")
+        self._dec_params = float(sum(p.numel() for p in self.model.decoder.parameters()))
+        self._dec_param_bytes = float(flops.nbytes(self.model.decoder))
 
     @torch.no_grad()
     def encode(self, images: torch.Tensor) -> torch.Tensor:
@@ -366,7 +372,14 @@ class UniTableStructure:
         parts = []
         for s, e, padded in batch_chunks(len(imgs), sizes=(4, 16)):
             batch = torch.from_numpy(pad_rows(all_imgs[s:e], padded)).to(self.device)
-            t, l = (a.cpu().numpy() for a in self.run(batch, max_len))
+            out = flops.track("table_unitable", self.run, (batch, max_len),
+                              sig=(tuple(batch.shape), str(batch.dtype), max_len,
+                                   str(self.dtype)),
+                              weights=self.model)
+            t, l = (a.cpu().numpy() for a in out)
+            flops.track_ar_extra("table_unitable", steps=float(l.max()), batch=int(t.shape[0]),
+                                 dec_params=self._dec_params,
+                                 dec_param_bytes=self._dec_param_bytes)
             parts.append((t[: e - s], l[: e - s]))
         tokens = np.concatenate([p[0] for p in parts])
         lengths = np.concatenate([p[1] for p in parts])

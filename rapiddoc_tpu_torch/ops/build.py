@@ -98,21 +98,52 @@ def build(name: str) -> Path:
     return out
 
 
+# the host-side decoders' sources
+HOST_LIBS = ("jpeg_entropy", "bilevel", "webp", "jpx")
+# a render worker's decision and libraries, handed down by its parent
+# (``preset``); None: this process decides for itself
+_preset: tuple[bool, dict[str, str]] | None = None
+
+
 def host_compiled() -> bool:
     """Whether the host-side decoders (``csrc/bilevel.cu``,
     ``csrc/jpeg_entropy.cu``, ``csrc/webp.cu``, ``csrc/jpx.cu``) run
     compiled: where a card is present, with no fallback; else their plain
-    Python versions run."""
+    Python versions run. A process given its parent's decision
+    (``preset``) takes it and does not probe."""
+    if _preset is not None:
+        return _preset[0]
     import torch
 
     return torch.cuda.is_available()
 
 
+def preset(compiled: bool, libraries: dict[str, str]) -> None:
+    """Take a parent's ``host_compiled()`` answer and the paths of the
+    host libraries it built (``host_libraries``): a render worker then
+    neither probes for a card nor runs nvcc."""
+    global _preset
+    _preset = (compiled, dict(libraries))
+
+
+def host_libraries() -> dict[str, str]:
+    """Build every host library (``HOST_LIBS``, all started together)
+    and return their paths, for ``preset`` in a worker."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(HOST_LIBS)) as pool:
+        return dict(zip(HOST_LIBS, (str(p) for p in pool.map(build, HOST_LIBS))))
+
+
 def load(name: str) -> ctypes.CDLL:
-    """Build if needed and load ``lib<name>.so`` once per process."""
+    """Build if needed and load ``lib<name>.so`` once per process (in a
+    preset worker, the library its parent built)."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
+            if _preset is not None and name in _preset[1]:
+                lib = ctypes.CDLL(_preset[1][name])
+            else:
+                lib = ctypes.CDLL(str(build(name)))
             _loaded[name] = lib
         return lib

@@ -8,7 +8,9 @@ needs only each frame's argmax id and its softmax probability, so the
 its design answers that.
 
 The wrapper takes the kernel for CUDA tensors and the plain PyTorch
-version below for CPU tensors; it does no other fallback.
+version below for CPU tensors; it does no other fallback. Either way it
+adds the kernel's 2·N·C·V FLOPs to an open counting pass
+(``engine/flops.py``) and runs the plain version uncounted.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..engine import flops
 from .build import load
 from .layout import aligned_rows, with_aligned_rows
 
@@ -109,8 +112,10 @@ def fused_ctc_argmax(
             f"shape mismatch: x {tuple(x.shape)}, kernel "
             f"{tuple(kernel.shape)}, bias {tuple(bias.shape)}"
         )
+    flops.add_flops(2 * n * c * kernel.shape[1])
     if x.device.type == "cpu":
-        return ctc_argmax_plain(x, kernel, bias)
+        with flops.uncounted():
+            return ctc_argmax_plain(x, kernel, bias)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if kernel.device != x.device or bias.device != x.device:

@@ -10,7 +10,9 @@ fp32 scale applied after the dot. The CUDA kernel is
 how its design answers that.
 
 The wrapper takes the kernel for CUDA tensors and the plain PyTorch
-version below for CPU tensors; it does no other fallback.
+version below for CPU tensors; it does no other fallback. Either way it
+adds the kernel's 2·N·K·V FLOPs to an open counting pass
+(``engine/flops.py``) and runs the plain version uncounted.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..engine import flops
 from .build import load
 from .layout import with_aligned_rows
 
@@ -139,8 +142,10 @@ def fused_argmax_int8(
         )
     if wq.dtype != torch.int8:
         raise ValueError(f"wq must be int8, got {wq.dtype}")
+    flops.add_flops(2 * n * k * v)
     if x.device.type == "cpu":
-        return quant_argmax_plain(x, wq, scale, bias)
+        with flops.uncounted():
+            return quant_argmax_plain(x, wq, scale, bias)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if any(t.device != x.device for t in (wq, scale, bias)):

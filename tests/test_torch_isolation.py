@@ -4,7 +4,8 @@ machine is not guaranteed any of those, so this is the CPU-side guard. The
 child process imports every module of the port with those blocked and runs
 the main path, Magika, the CCITT, JBIG2 and shading code, an Office
 document (a docx), an image file (a GIF), the command line and the HTTP
-service.
+service, and starts the render pool, whose workers must import none of
+those (nor torch).
 
 aiohttp, click, requests and FastAPI are banned too: the JAX package's
 CLI, service and downloads use them, and the card's machine has none of
@@ -92,6 +93,8 @@ MAIN_PATH_MODULES = (
     "rapiddoc_tpu_torch.tools.eval_quality", "rapiddoc_tpu_torch.utils.teds",
     "rapiddoc_tpu_torch.utils.safetensors", "rapiddoc_tpu_torch.utils.yaml_subset",
     "rapiddoc_tpu_torch.utils.hf_tokenizer",
+    # the FLOP accounting and the render pool
+    "rapiddoc_tpu_torch.engine.flops", "rapiddoc_tpu_torch.pdfio.parallel_render",
 )
 
 
@@ -221,6 +224,12 @@ def test_port_imports_and_runs_with_banned_modules_blocked():
                 f.write(struct.pack("<Q", len(head)) + head.encode()
                         + np.array([1.5, -2], np.float32).tobytes())
             assert safetensors.load_file(tmp + "/w.safetensors")["w"].tolist() == [1.5, -2.0]
+        # the render pool's workers import the port's pdfio: nothing
+        # banned, and not torch either
+        from rapiddoc_tpu_torch.pdfio import parallel_render
+        reports = parallel_render.probe_workers()
+        parallel_render.kill_pool()
+        assert reports and all(r["modules"] == [] for r in reports), reports
         loaded = sorted(k for k in sys.modules if k.split(".")[0] in {BANNED!r}
                         and sys.modules[k] is not None)
         assert not loaded, loaded

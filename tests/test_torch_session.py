@@ -67,3 +67,53 @@ def test_cuda_is_the_default_device():
         with pytest.raises(RuntimeError):
             resolve_device(None)
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_compiles_count_new_bucket_signatures_only():
+    """A bucket signature's first dispatch is the port's compile: counted
+    once, its cost recorded under the session's name, every call counted."""
+    from rapiddoc_tpu_torch.engine import flops
+
+    spec = tb.BucketSpec(heights=(4,), widths=(4, 8), batch_sizes=(2, 4))
+    sess = TorchSession(lambda m, x: m(x), _Double(), spec, name="compiles_probe",
+                        device="cpu", dtype=torch.float32, preproc=lambda x: x.float())
+    flops.reset()
+    for n, w in ((1, 4), (2, 4)):  # one bucket: (2, 4, 4, 1)
+        sess(np.zeros((n, 4, w, 1), np.uint8))
+    assert sess.stats.compiles == 1
+    sess(np.zeros((3, 4, 4, 1), np.uint8))  # batch bucket 4
+    sess(np.zeros((1, 4, 8, 1), np.uint8))  # another width
+    assert sess.stats.compiles == 3
+    sess(np.zeros((7, 4, 4, 1), np.uint8))  # chunks of 4 and 3 -> 4: no new bucket
+    assert sess.stats.compiles == 3 and sess.stats.calls == 6
+    rep = flops.cost_report()["compiles_probe"]
+    assert rep["calls"] == 6 and rep["analyzed"] == 3 and rep["flops"] == 0.0
+    assert rep["bytes"] > 0
+    flops.reset()
+
+
+def test_report_keys_equal_jax():
+    """SessionStats, session_stats_report, measure_wire_bandwidth and
+    transfer_split_report carry the JAX package's keys; without a card the
+    wire constants and the estimate are None."""
+    from rapiddoc_tpu.engine import session as js
+    from rapiddoc_tpu_torch.engine import session as ts
+
+    assert list(ts.SessionStats().as_dict()) == list(js.SessionStats().as_dict())
+    spec = tb.BucketSpec(heights=(4,), widths=(4,), batch_sizes=(1,))
+    sess = TorchSession(lambda m, x: m(x), _Double(), spec, name="keys_probe", device="cpu",
+                        dtype=torch.float32)
+    sess(np.ones((1, 4, 4, 1), np.uint8))
+    jsess = js.JaxSession(lambda p, x: x, {}, jb.BucketSpec(heights=(4,), widths=(4,),
+                                                            batch_sizes=(1,)), name="keys_probe")
+    assert ts.session_stats_report()["keys_probe"] == sess.stats.as_dict()
+    assert list(js.session_stats_report()["keys_probe"]) == list(sess.stats.as_dict())
+    want = js.transfer_split_report()["keys_probe"]
+    got = ts.transfer_split_report()["keys_probe"]
+    assert list(got) == list(want)
+    assert got["bytes_in"] == 16 and got["fetches"] == 1
+    wire = ts.measure_wire_bandwidth()
+    assert list(wire) == list(js.measure_wire_bandwidth())
+    if not torch.cuda.is_available():
+        assert set(wire.values()) == {None} and got["transfer_ms_est"] is None
+    js._ALL_SESSIONS.remove(jsess)
