@@ -169,6 +169,16 @@ per shape or run):
           package's golden, the .md equal to an in-process parse's, every
           output written, the overlay's pages decoded; K1's launches held
           to the rec dispatches
+  hostops the JAX package's native host loops compiled from
+          csrc/hostops.cu (PNG and TIFF predictors, iou_matrix, nms,
+          levenshtein), each equal to its plain version on seeded inputs;
+          a 1700 x 2200 RGB Paeth image through the compiled predictor,
+          timed, beside the plain one on 64 rows; the render pool's
+          workers handed the hostops library
+  accounting  the render pool against the serial render, the fp32
+          FLOPs and calls per program against the CPU golden, and a timed
+          bf16 int8 parse of 16 pages printing the bench's [session],
+          [mfu], [wire], [split], [workload], [overlap] and [variance]
 Then a timing line (seconds by phase), a ``{"kernels": [...]}`` line,
 the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
@@ -186,8 +196,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 N_FRAMES, C_FEAT = 10240, 120  # REC_BUCKETS batch 128 x T 80; neck width
 VOCABS = (96, 91, 18710)  # demo charset; Cyrillic demo; published ppocrv6_small_dict.txt
-H100_BF16_FLOPS = 989e12
-H100_BYTES_PER_S = 3.35e12
 TIMED_RUNS = 2
 CONF_RTOL, CONF_ATOL = 1e-5, 1e-8  # K1's conf against its plain version
 # The bf16 main path against the JAX package's bf16 golden. The two
@@ -208,8 +216,8 @@ BF16_MAX_UNMATCHED, BF16_MIN_EXACT, BF16_MAX_CER = 4, 0.60, 0.05
 # the band, and full fp32 far below it.
 BF16_GAP_BAND = (0.6, 1.5)
 KERNELS = ("ctc_head", "quant_head")
-# jpeg_entropy, bilevel, webp and jpx: host code, not kernels
-BUILDS = KERNELS + ("jpeg_entropy", "bilevel", "webp", "jpx")
+# jpeg_entropy, bilevel, webp, jpx and hostops: host code, not kernels
+BUILDS = KERNELS + ("jpeg_entropy", "bilevel", "webp", "jpx", "hostops")
 # The pipeline's bf16 Markdown against the JAX package's bf16 golden: the
 # ocr phase's limits (line share and CER). The port's bf16 on the CPU
 # reads 56/74 lines equal (0.757), CER 0.0083, and the JAX package's own
@@ -366,16 +374,6 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def ctc_bound_ms(n: int, c: int, v: int) -> tuple[float, str]:
-    """Least time for the head on an H100: bf16 operations 2*N*C*V at
-    989 TFLOP/s against bytes read once (x, W bf16; b fp32) and written
-    once (ids int32, conf fp32) at 3.35 TB/s."""
-    ops = 2.0 * n * c * v
-    nbytes = n * c * 2 + c * v * 2 + v * 4 + n * 8
-    t_ops, t_bytes = ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
-
-
 def write_published_ocr(models_dir: Path) -> None:
     """Published-format OCR checkpoints (flat flax npz, float32) in
     ``models_dir``, made from the in-repo demo ones and a seed: a
@@ -462,6 +460,7 @@ def phase_ctc_head() -> dict:
         pad_ctc_kernel,
         schedule,
     )
+    from rapiddoc_tpu_torch.profile_heads import ctc_bound_ms
 
     def library(x, w, b):
         # one PyTorch matmul + softmax reduction: the yardstick, never
@@ -539,17 +538,6 @@ def flushed_ms(fn, flush, iters: int = 20, warmup: int = 3) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
-def quant_bound_ms(n: int, k: int, v: int) -> tuple[float, str]:
-    """Least time for the int8 head on an H100: 2*N*K*V operations at the
-    bf16 rate (989 TFLOP/s) against bytes read once (x bf16, wq int8,
-    scale and bias fp32) and written once (ids int32, conf fp32) at
-    3.35 TB/s."""
-    ops = 2.0 * n * k * v
-    nbytes = n * k * 2 + k * v + v * 8 + n * 8
-    t_ops, t_bytes = ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
-
-
 def phase_quant_head() -> dict:
     """K2 against its plain version at the formula decode's widths;
     returns the measurements by (N, V)."""
@@ -563,6 +551,7 @@ def phase_quant_head() -> dict:
         quantize_weight_int8,
         schedule,
     )
+    from rapiddoc_tpu_torch.profile_heads import quant_bound_ms
 
     def library(xb, wb):
         # the bf16 lm_head + argmax that the JAX package runs by default:
@@ -4137,6 +4126,107 @@ def phase_webp_jpx(card: str) -> dict:
 
 # ------------------------------------------- the seventeenth slice's path
 
+# phase hostops: a 1700 x 2200 RGB image (a Letter page at 200 dpi) of
+# Paeth rows through the compiled predictor; the plain one on a few rows
+HOSTOPS_PAGE = (1700, 2200)
+HOSTOPS_PLAIN_ROWS = 64
+
+
+def png_rows(rng, row_len: int, kinds, partial: int = 0) -> bytes:
+    """Random PNG-predicted rows, one a filter byte of ``kinds`` in turn,
+    and ``partial`` bytes of a row cut short."""
+    import numpy as np
+
+    body = rng.integers(0, 256, (len(kinds), row_len + 1), dtype=np.uint8)
+    body[:, 0] = kinds
+    return body.tobytes() + rng.integers(0, 256, partial, dtype=np.uint8).tobytes()
+
+
+def phase_hostops(card: str) -> dict:
+    """The JAX package's native host loops, compiled from csrc/hostops.cu
+    (utils/native.py), each equal to its plain version on seeded inputs:
+    PNG predictors of all five types, an unknown filter byte and a partial
+    last row; TIFF predictor 2; iou_matrix at 100 x 100 and 80 x 80; nms;
+    levenshtein on ASCII and CJK text. Then a 1700 x 2200 RGB Paeth image
+    through the compiled predictor, timed, beside the plain one on 64 rows
+    (and its estimate for the page); and the render pool's workers, which
+    must have been handed the hostops library."""
+    import numpy as np
+
+    from rapiddoc_tpu_torch.ops import build
+    from rapiddoc_tpu_torch.pdfio import filters, parallel_render
+    from rapiddoc_tpu_torch.utils import boxes, native, teds
+
+    t_phase = time.perf_counter()
+    check(build.host_compiled(), "hostops: the host loops would not run compiled")
+    rng = np.random.default_rng(21)
+    checked = {}
+    for row_len, bpp, kinds, partial in ((96, 3, (0, 1, 2, 3, 4) * 4, 0),
+                                         (61, 1, (4, 3, 2, 1, 0, 7), 17),
+                                         (40, 4, (4, 255, 2, 5, 3, 1), 39)):
+        data = png_rows(rng, row_len, kinds, partial)
+        check(native.png_defilter(data, row_len, bpp)
+              == filters.png_defilter_plain(data, row_len, bpp),
+              f"hostops: png_defilter differs from the plain one at row_len {row_len}")
+        tiff = data[: row_len * 5 + partial]
+        check(native.tiff_defilter(tiff, row_len, bpp)
+              == filters.tiff_defilter_plain(tiff, row_len, bpp),
+              f"hostops: tiff_defilter differs from the plain one at row_len {row_len}")
+    checked["png_tiff_cases"] = 3
+    for n in (100, 80):
+        xy = rng.uniform(0, 500, (2 * n, 2))
+        b = np.concatenate([xy, xy + rng.uniform(-5, 120, (2 * n, 2))], axis=1)
+        b[::7, 2] = b[::7, 0]
+        check(np.array_equal(native.iou_matrix(b[:n], b[n:]), boxes.iou_matrix_plain(b[:n], b[n:])),
+              f"hostops: iou_matrix differs from the plain one at {n} x {n}")
+        scores = rng.permutation(2 * n) / (2 * n)
+        for threshold in (0.3, 0.5):
+            check(native.nms(b, scores, threshold) == boxes.nms(b, scores, threshold),
+                  f"hostops: nms differs from the plain one at {2 * n} boxes")
+    checked["iou_nms_cases"] = 2
+    for a, b in (("kitten sitting on the mat", "sitting kitten on a mat"),
+                 ("表格识别结果：合计 1,234.50 元", "表格识别的结果:合计 1234.5元"), ("", "空"),
+                 ("lone \ud800 surrogate", "lone surrogate")):
+        check(native.levenshtein(a, b) == teds.levenshtein(a, b),
+              f"hostops: levenshtein differs from the plain one on {a!r}")
+    checked["levenshtein_cases"] = 4
+    # a row length a 32-bit int would truncate (/Columns 1431655769,
+    # /Colors 3) is refused before the C loop sees it
+    for defilter in (native.png_defilter, native.tiff_defilter):
+        try:
+            defilter(b"\x04" * 64, 4294967307, 3)
+            check(False, f"hostops: {defilter.__name__} took a row of 4294967307 bytes")
+        except ValueError:
+            pass
+    checked["oversized_rows_refused"] = 2
+    checks_s = time.perf_counter() - t_phase
+    w, h = HOSTOPS_PAGE
+    page = png_rows(rng, w * 3, (4,) * h)
+    t0 = time.perf_counter()
+    out = native.png_defilter(page, w * 3, 3)
+    compiled_ms = (time.perf_counter() - t0) * 1e3
+    head = page[: HOSTOPS_PLAIN_ROWS * (w * 3 + 1)]
+    t0 = time.perf_counter()
+    plain = filters.png_defilter_plain(head, w * 3, 3)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(out[: len(plain)] == plain and len(out) == w * 3 * h,
+          "hostops: the page's compiled Paeth rows differ from the plain ones")
+    t0 = time.perf_counter()
+    reports = parallel_render.probe_workers()
+    probe_s = time.perf_counter() - t0
+    check(reports and all(r["host_compiled"] and "hostops" in (r["libraries"] or {})
+                          for r in reports),
+          f"hostops: the render pool's workers lack the hostops library: {reports}")
+    rec = {"phase": "hostops", "card": card, "equal_to_plain": checked,
+           "paeth_page": f"{w} x {h} RGB", "compiled_ms_per_page": compiled_ms,
+           "plain_ms_per_64_rows": plain_ms,
+           "plain_ms_per_page_estimate": plain_ms * h / HOSTOPS_PLAIN_ROWS,
+           "pool_workers_with_hostops": len(reports), "checks_seconds": checks_s,
+           "pool_probe_seconds": probe_s, "phase_seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    return rec
+
+
 ACCOUNTING_PAGES = 16  # a window the render pool takes (>= 16 pages)
 
 
@@ -4212,8 +4302,8 @@ def phase_accounting(card: str) -> dict:
     off) through the pool whose FLOPs and calls per program equal the
     port's CPU golden; one timed bf16 parse with the int8 head (its model
     stack kept alone, the other phases' dropped, so the reports read its
-    sessions) printing the bench's [session], [mfu], [wire] and [split]
-    reports, K1's
+    sessions) printing the bench's [session], [mfu], [wire], [split],
+    [workload], [overlap] and [variance] reports, K1's
     launches held to the rec dispatches and K2's to the decode steps. No
     window may fall back to the serial render. Returns the launches."""
     import gc
@@ -4223,7 +4313,13 @@ def phase_accounting(card: str) -> dict:
 
     from rapiddoc_tpu_torch import RapidDoc
     from rapiddoc_tpu_torch.api import ModelStack
-    from rapiddoc_tpu_torch.bench import STAGES, accounting
+    from rapiddoc_tpu_torch.bench import (
+        STAGES,
+        accounting,
+        overlap_report,
+        variance_report,
+        workload_report,
+    )
     from rapiddoc_tpu_torch.config import get_pdf_render_dpi
     from rapiddoc_tpu_torch.engine import flops
     from rapiddoc_tpu_torch.engine.session import SessionStats
@@ -4295,6 +4391,17 @@ def phase_accounting(card: str) -> dict:
     counts = window()
     report = GLOBAL_TRACER.report()
     acc = accounting(report, ACCOUNTING_PAGES, "cuda")
+    # the bench's [workload], [overlap] and [variance] of this one parse
+    t0 = time.perf_counter()
+    rec_stats = analyzer.ocr.recognizer.session.stats
+    workload = workload_report(report, rec_stats.items)
+    print(f"[workload] {workload}", file=sys.stderr)
+    overlap = overlap_report(report, ACCOUNTING_PAGES, wall, workload, rec_stats.as_dict())
+    print(f"[overlap] {overlap}", file=sys.stderr)
+    overlap["variance"] = variance_report(ACCOUNTING_PAGES, [wall], {
+        "formula_dense": 2, "table_heavy": 2, "synth_text": ACCOUNTING_PAGES - 4})
+    print(f"[variance] {overlap['variance']}", file=sys.stderr)
+    overlap_s = time.perf_counter() - t0
     check(stats["windows"] == windows + 1, "accounting bf16: the window missed the pool")
     check(stats["fallbacks"] == fallbacks,
           f"accounting: {stats['fallbacks'] - fallbacks} windows fell back to the serial render")
@@ -4304,7 +4411,10 @@ def phase_accounting(card: str) -> dict:
           "stage_ms_per_page": {k: report[k]["total_s"] * 1e3 / ACCOUNTING_PAGES
                                 for k in STAGES if k in report},
           "mfu": acc["mfu"], "wire": acc["wire"], "split": acc["split"],
-          "session_stats": acc["session_stats"], "phase_seconds": time.perf_counter() - t_phase})
+          "session_stats": acc["session_stats"], "workload": workload, "overlap": overlap,
+          "overlap_seconds": overlap_s, "phase_seconds": time.perf_counter() - t_phase})
+    check(workload["rec_crops"] > 0 and overlap["e2e_over_max_path"] > 0,
+          f"accounting bf16: no rec crops or no overlap: {workload} {overlap}")
     check(out.markdown.strip() != "", "accounting bf16: an empty Markdown")
     check(acc["mfu"]["total_gflops"] > 0 and acc["mfu"]["mfu_total"] is not None,
           "accounting bf16: no FLOPs or no MFU for the card")
@@ -4376,6 +4486,7 @@ def main() -> int:
         pool = start_render_pool()
         serve_counts = timed("serve", phase_serve, card)
         cli_counts = timed("cli", phase_cli, card)
+        timed("hostops", phase_hostops, card)
         accounting_counts = timed("accounting", phase_accounting, card)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

@@ -3,8 +3,9 @@
 Each source under ``csrc/`` exposes a plain ``extern "C"`` launcher and
 includes no PyTorch header (only the shared ``csrc/*.cuh``), so one nvcc
 call takes seconds. The shared library goes to
-``_build/<name>-<hash>/`` beside the package and is reused while the
-source, the headers it includes and the flags are unchanged. Nothing here runs at import
+``_build/<name>-<hash>/`` beside the package (or under
+``RAPIDDOC_BUILD_DIR``) and is reused while the source, the headers it
+includes and the flags are unchanged. Nothing here runs at import
 time: the first launch of a kernel builds it.
 """
 from __future__ import annotations
@@ -20,7 +21,9 @@ from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
-BUILD_DIR = PKG_DIR / "_build"
+# RAPIDDOC_BUILD_DIR puts the builds elsewhere (read once, at import: the
+# cold-start rehearsal gives each fresh process its own directory)
+BUILD_DIR = Path(os.environ.get("RAPIDDOC_BUILD_DIR") or PKG_DIR / "_build").resolve()
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -98,18 +101,19 @@ def build(name: str) -> Path:
     return out
 
 
-# the host-side decoders' sources
-HOST_LIBS = ("jpeg_entropy", "bilevel", "webp", "jpx")
+# the host-side loops' sources (decoders, and the JAX package's native
+# loops in hostops)
+HOST_LIBS = ("jpeg_entropy", "bilevel", "webp", "jpx", "hostops")
 # a render worker's decision and libraries, handed down by its parent
 # (``preset``); None: this process decides for itself
 _preset: tuple[bool, dict[str, str]] | None = None
 
 
 def host_compiled() -> bool:
-    """Whether the host-side decoders (``csrc/bilevel.cu``,
-    ``csrc/jpeg_entropy.cu``, ``csrc/webp.cu``, ``csrc/jpx.cu``) run
-    compiled: where a card is present, with no fallback; else their plain
-    Python versions run. A process given its parent's decision
+    """Whether the host-side loops (``csrc/bilevel.cu``,
+    ``csrc/jpeg_entropy.cu``, ``csrc/webp.cu``, ``csrc/jpx.cu``,
+    ``csrc/hostops.cu``) run compiled: where a card is present, with no
+    fallback; else their plain Python versions run. A process given its parent's decision
     (``preset``) takes it and does not probe."""
     if _preset is not None:
         return _preset[0]

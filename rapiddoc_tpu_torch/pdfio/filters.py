@@ -41,16 +41,29 @@ def _apply_predictor(data: bytes, params: dict) -> bytes:
     bpp = max(1, (colors * bpc + 7) // 8)
     row_len = (columns * colors * bpc + 7) // 8
 
+    from ..utils import native
+
     if predictor == 2:  # TIFF horizontal differencing (8-bit only)
         if bpc != 8:
             return data
-        out = bytearray(data)
-        for r in range(0, len(out) - row_len + 1, row_len):
-            for i in range(bpp, row_len):
-                out[r + i] = (out[r + i] + out[r + i - bpp]) & 0xFF
-        return bytes(out)
-
+        return native.tiff_defilter(data, row_len, bpp)
     # PNG predictors: each row prefixed by a filter-type byte
+    return native.png_defilter(data, row_len, bpp)
+
+
+def tiff_defilter_plain(data: bytes, row_len: int, bpp: int) -> bytes:
+    """TIFF predictor 2 undone in Python: the plain version of
+    ``csrc/hostops.cu``'s ``tiff_defilter``."""
+    out = bytearray(data)
+    for r in range(0, len(out) - row_len + 1, row_len):
+        for i in range(bpp, row_len):
+            out[r + i] = (out[r + i] + out[r + i - bpp]) & 0xFF
+    return bytes(out)
+
+
+def png_defilter_plain(data: bytes, row_len: int, bpp: int) -> bytes:
+    """PNG predictors undone in Python: the plain version of
+    ``csrc/hostops.cu``'s ``png_defilter``."""
     stride = row_len + 1
     nrows = len(data) // stride
     out = bytearray(nrows * row_len)

@@ -12,12 +12,17 @@ Where the port differs:
 
 - Workers return numpy rasters, text dicts and boxes (the JAX package's
   PNG round trip is lossless; nothing needs it here).
-- Workers start with ``spawn``: the parent holds a CUDA context and the
-  window loop's render-ahead and assembly threads, which a fork would copy
-  in whatever state they are in. A worker imports the port's ``pdfio``
-  (and the program's main module, as ``spawn`` does: a program that
-  parses 16 pages or more needs the ``if __name__ == "__main__":`` guard
-  spawn asks for), never torch, PIL or JAX.
+- Workers are fresh interpreters started with ``subprocess`` (fork and
+  exec, as ``spawn`` starts them): the parent holds a CUDA context and the
+  window loop's render-ahead and assembly threads, which a plain fork would
+  copy in whatever state they are in. A worker imports this module and the
+  port's ``pdfio``, never torch, PIL or JAX, and never the program's main
+  module: ``multiprocessing``'s ``spawn`` re-runs a script's top level in
+  every worker (and then refuses to start processes from there), so a
+  script without the ``if __name__ == "__main__":`` guard would run its
+  model builds and file writes again in each worker. Tasks and results go
+  as pickles over the worker's stdin and a copy of its stdout (its fd 1
+  then points at stderr, so a stray print cannot break the stream).
 - The compiled host loops (``ops/build.py``): the parent decides
   (``host_compiled()``), builds the host libraries, and hands its answer
   and their paths to each worker (``build.preset``); a worker never probes
@@ -33,19 +38,20 @@ Where the port differs:
 """
 from __future__ import annotations
 
-import multiprocessing
 import os
+import pickle
+import queue
+import subprocess
 import sys
 import threading
-from concurrent.futures import ProcessPoolExecutor
-from concurrent.futures.process import BrokenProcessPool
+from concurrent.futures import Future, ThreadPoolExecutor
 
 from ..config import env_bool, env_int
 from ..utils.logging import get_logger
 
 logger = get_logger("rapiddoc_tpu_torch.pdfio.parallel")
 
-_POOL: ProcessPoolExecutor | None = None
+_POOL: "_Pool | None" = None
 _POOL_LOCK = threading.Lock()
 # windows rendered through the pool, the windows a pool fault or timeout
 # sent to the serial path (api.render_window counts them) and the
@@ -85,10 +91,105 @@ def _timeout() -> float:
     )
 
 
-def _init_worker(compiled: bool, libraries: dict[str, str]) -> None:
+# a worker's first lines: keep a private copy of fd 1 for the results,
+# point fd 1 at stderr, take the parent's sys.path, serve
+_BOOT = (
+    "import os, pickle, sys\n"
+    "out = os.fdopen(os.dup(1), 'wb')\n"
+    "os.dup2(2, 1)\n"
+    "sys.path[:] = pickle.load(sys.stdin.buffer)\n"
+    "from rapiddoc_tpu_torch.pdfio.parallel_render import serve\n"
+    "serve(sys.stdin.buffer, out)\n"
+)
+
+
+def serve(inp, out) -> None:
+    """Worker: take the parent's compiled-loop decision and libraries,
+    then run ``(fn, args)`` tasks until stdin closes, answering each with
+    ``(True, result)`` or ``(False, exception)``."""
     from ..ops import build
 
-    build.preset(compiled, libraries)
+    build.preset(*pickle.load(inp))
+    while True:
+        try:
+            fn, args = pickle.load(inp)
+        except EOFError:
+            return
+        try:
+            answer = (True, fn(*args))
+        except Exception as exc:  # carried back and raised in the parent
+            answer = (False, exc)
+        try:
+            data = pickle.dumps(answer, pickle.HIGHEST_PROTOCOL)
+        except Exception as exc:
+            data = pickle.dumps((False, RuntimeError(f"unpicklable answer: {exc!r}")))
+        out.write(data)
+        out.flush()
+
+
+class _Worker:
+    """One worker process and its two pipes."""
+
+    def __init__(self, compiled: bool, libraries: dict[str, str]):
+        self.proc = subprocess.Popen([sys.executable, "-c", _BOOT],
+                                     stdin=subprocess.PIPE, stdout=subprocess.PIPE)
+        self._send(list(sys.path))
+        self._send((compiled, dict(libraries)))
+
+    def _send(self, obj) -> None:
+        pickle.dump(obj, self.proc.stdin, pickle.HIGHEST_PROTOCOL)
+        self.proc.stdin.flush()
+
+    def call(self, fn, args: tuple):
+        self._send((fn, args))
+        ok, value = pickle.load(self.proc.stdout)
+        if not ok:
+            raise value
+        return value
+
+
+class _Pool:
+    """``n`` worker processes behind ``submit(fn, *args) -> Future``: each
+    task waits for an idle worker on one of ``n`` threads."""
+
+    def __init__(self, n: int, compiled: bool, libraries: dict[str, str]):
+        self._idle: queue.Queue[_Worker] = queue.Queue()
+        self.procs: list[subprocess.Popen] = []
+        try:
+            for _ in range(n):
+                worker = _Worker(compiled, libraries)
+                self.procs.append(worker.proc)
+                self._idle.put(worker)
+        except OSError:
+            for proc in self.procs:
+                proc.kill()
+            raise
+        self._threads = ThreadPoolExecutor(n, thread_name_prefix="render-pool")
+
+    def submit(self, fn, *args) -> Future:
+        return self._threads.submit(self._run, fn, args)
+
+    def _run(self, fn, args: tuple):
+        worker = self._idle.get()
+        try:
+            return worker.call(fn, args)
+        finally:
+            self._idle.put(worker)
+
+    def kill(self) -> None:
+        """Kill every worker (a task's read then ends at EOF), wait for
+        them and the threads, close the pipes."""
+        for proc in self.procs:
+            proc.kill()
+        for proc in self.procs:
+            proc.wait()
+        self._threads.shutdown(wait=True, cancel_futures=True)
+        for proc in self.procs:
+            for pipe in (proc.stdin, proc.stdout):
+                try:
+                    pipe.close()
+                except OSError:  # a broken pipe's unflushed write
+                    pass
 
 
 def _render_range(pdf_bytes: bytes, idxs: list[int], dpi: int,
@@ -133,7 +234,7 @@ def worker_report() -> dict:
     }
 
 
-def _get_pool() -> ProcessPoolExecutor:
+def _get_pool() -> _Pool:
     global _POOL
     with _POOL_LOCK:
         if _POOL is None:
@@ -141,10 +242,7 @@ def _get_pool() -> ProcessPoolExecutor:
 
             compiled = build.host_compiled()
             libraries = build.host_libraries() if compiled else {}
-            _POOL = ProcessPoolExecutor(
-                max_workers=_n_workers(), mp_context=multiprocessing.get_context("spawn"),
-                initializer=_init_worker, initargs=(compiled, libraries),
-            )
+            _POOL = _Pool(_n_workers(), compiled, libraries)
         return _POOL
 
 
@@ -154,11 +252,8 @@ def kill_pool() -> None:
     global _POOL
     with _POOL_LOCK:
         pool, _POOL = _POOL, None
-    if pool is None:
-        return
-    for proc in list((getattr(pool, "_processes", None) or {}).values()):
-        proc.kill()
-    pool.shutdown(wait=True, cancel_futures=True)
+    if pool is not None:
+        pool.kill()
 
 
 def probe_workers() -> list[dict]:
@@ -181,14 +276,12 @@ def render_pages_parallel(pdf_bytes: bytes, idxs: list[int], dpi: int, want_text
     shards = [s for s in (idxs[k::nw] for k in range(nw)) if s]
     results: dict[int, object] = {}
     try:
-        # spawn's own refusal (a main module without the __main__ guard,
-        # being imported in a worker) is not caught: that worker stops
         pool = _get_pool()
         futures = [pool.submit(_render_range, pdf_bytes, shard, dpi, want_text)
                    for shard in shards]
-    except BrokenProcessPool as exc:
+    except OSError as exc:  # a worker that could not be started
         kill_pool()
-        raise PoolFault(f"the render pool is broken ({exc})") from exc
+        raise PoolFault(f"the render pool did not start ({exc})") from exc
     try:
         for shard, fut in zip(shards, futures):
             compiled, items = fut.result(timeout=timeout)

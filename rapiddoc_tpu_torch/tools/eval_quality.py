@@ -37,7 +37,7 @@ def normalized_edit_distance(a: str, b: str) -> float:
         return 0.0
     if not a or not b:
         return 1.0
-    from ..utils.teds import levenshtein
+    from ..utils.native import levenshtein
 
     return levenshtein(a, b) / max(len(a), len(b))
 

@@ -110,6 +110,18 @@ def iou_matrix(boxes_a: np.ndarray, boxes_b: np.ndarray) -> np.ndarray:
     """Pairwise IoU, shape [len(a), len(b)]."""
     a = np.asarray(boxes_a, dtype=np.float64).reshape(-1, 4)
     b = np.asarray(boxes_b, dtype=np.float64).reshape(-1, 4)
+    if a.shape[0] * b.shape[0] >= 4096:  # the compiled loop pays off at scale
+        from . import native
+
+        return native.iou_matrix(a, b)
+    return iou_matrix_plain(a, b)
+
+
+def iou_matrix_plain(boxes_a: np.ndarray, boxes_b: np.ndarray) -> np.ndarray:
+    """Pairwise IoU in numpy: the plain version of ``csrc/hostops.cu``'s
+    ``iou_matrix``."""
+    a = np.asarray(boxes_a, dtype=np.float64).reshape(-1, 4)
+    b = np.asarray(boxes_b, dtype=np.float64).reshape(-1, 4)
     x0 = np.maximum(a[:, None, 0], b[None, :, 0])
     y0 = np.maximum(a[:, None, 1], b[None, :, 1])
     x1 = np.minimum(a[:, None, 2], b[None, :, 2])
@@ -135,17 +147,26 @@ def overlap_matrix(boxes_a: np.ndarray, boxes_b: np.ndarray) -> np.ndarray:
 
 
 def nms(boxes: np.ndarray, scores: np.ndarray, iou_threshold: float = 0.5) -> list[int]:
-    """Greedy NMS on the host; returns kept indices in score order."""
+    """Greedy NMS on the host; returns kept indices in score order (the
+    plain version of ``csrc/hostops.cu``'s ``nms``): descending score
+    order with ties in index order, and a box suppressed where the union
+    is positive and IoU exceeds the threshold."""
     boxes = np.asarray(boxes, dtype=np.float64).reshape(-1, 4)
-    order = np.argsort(-np.asarray(scores))
-    keep: list[int] = []
+    order = np.argsort(-np.asarray(scores, dtype=np.float64), kind="stable")
+    area = np.maximum(boxes[:, 2] - boxes[:, 0], 0.0) * np.maximum(boxes[:, 3] - boxes[:, 1], 0.0)
     suppressed = np.zeros(len(boxes), dtype=bool)
-    ious = iou_matrix(boxes, boxes)
+    keep: list[int] = []
     for i in order:
         if suppressed[i]:
             continue
         keep.append(int(i))
-        suppressed |= ious[i] > iou_threshold
+        x0, y0, x1, y1 = boxes[i]
+        inter = (np.maximum(np.minimum(x1, boxes[:, 2]) - np.maximum(x0, boxes[:, 0]), 0.0)
+                 * np.maximum(np.minimum(y1, boxes[:, 3]) - np.maximum(y0, boxes[:, 1]), 0.0))
+        union = area[i] + area - inter
+        over = union > 0
+        over[over] = inter[over] / union[over] > iou_threshold
+        suppressed |= over
         suppressed[i] = True
     return keep
 

@@ -1,7 +1,8 @@
 """TEDS — Tree-Edit-Distance-based Similarity for table HTML.
 
-Port of ``rapiddoc_tpu/utils/teds.py``; the edit distance is the JAX
-package's pure-Python path (its native Levenshtein is not ported).
+Port of ``rapiddoc_tpu/utils/teds.py``; the cell texts' edit distance
+goes through ``utils.native.levenshtein`` (compiled where a card is
+present), whose plain version is ``levenshtein`` here.
 
 Evaluation counterpart of the reference's table metric driver
 (reference: tests/table_recognition_metric_test.py, which scores
@@ -86,7 +87,8 @@ def parse_table(html: str) -> _Node:
 
 
 def levenshtein(a: str, b: str) -> int:
-    """The edit distance of two strings (unit insert, delete, substitute)."""
+    """The edit distance of two strings (unit insert, delete, substitute):
+    the plain version of ``csrc/hostops.cu``'s ``levenshtein_u32``."""
     if a == b:
         return 0
     if not a:
@@ -111,7 +113,9 @@ def _node_sub_cost(a: _Node, b: _Node, structure_only: bool) -> float:
     ta, tb = a.text.strip(), b.text.strip()
     if not ta and not tb:
         return 0.0
-    return levenshtein(ta, tb) / max(len(ta), len(tb))
+    from . import native
+
+    return native.levenshtein(ta, tb) / max(len(ta), len(tb))
 
 
 def _postorder(root: _Node):

@@ -95,6 +95,9 @@ MAIN_PATH_MODULES = (
     "rapiddoc_tpu_torch.utils.hf_tokenizer",
     # the FLOP accounting and the render pool
     "rapiddoc_tpu_torch.engine.flops", "rapiddoc_tpu_torch.pdfio.parallel_render",
+    # the compiled host loops and the bench's parts
+    "rapiddoc_tpu_torch.utils.native", "rapiddoc_tpu_torch.tools.coldstart",
+    "rapiddoc_tpu_torch.profile_heads",
 )
 
 
@@ -224,6 +227,22 @@ def test_port_imports_and_runs_with_banned_modules_blocked():
                 f.write(struct.pack("<Q", len(head)) + head.encode()
                         + np.array([1.5, -2], np.float32).tobytes())
             assert safetensors.load_file(tmp + "/w.safetensors")["w"].tolist() == [1.5, -2.0]
+        # the host loops' plain versions and the bench's parts that run
+        # without a card
+        from rapiddoc_tpu_torch.utils import native
+        assert native.png_defilter(bytes([4, 9, 9, 1, 5, 5]), 2, 1) == bytes([9, 18, 5, 10])
+        assert native.tiff_defilter(bytes([1, 2, 3, 4]), 2, 1) == bytes([1, 3, 3, 7])
+        assert native.nms(np.array([[0, 0, 2, 2], [0, 0, 2, 2.1]]), np.array([0.2, 0.9]),
+                          0.5) == [1]
+        assert native.iou_matrix(np.zeros((70, 4)), np.ones((70, 4))).shape == (70, 70)
+        assert native.levenshtein("表格", "表") == 1
+        from rapiddoc_tpu_torch import bench
+        docs = bench.corpus_docs()
+        assert len(bench.page_images(docs["table_heavy"])) == bench.CORPUS_PAGES
+        wl = bench.workload_report({{"formula": {{"items": 2}}}}, 10)
+        assert bench.baseline_report(1.0, wl, 2)["vs_baseline"] > 0
+        assert bench.overlap_report({{"render": {{"total_s": 1.0}}}}, 2, 1.0, wl,
+                                    {{}})["e2e_over_max_path"] == 1.0
         # the render pool's workers import the port's pdfio: nothing
         # banned, and not torch either
         from rapiddoc_tpu_torch.pdfio import parallel_render

@@ -4,9 +4,15 @@ CPU, with no models: the gate, the worker count and the shards equal the
 JAX package's under the same environment; the pool's rasters, text dicts
 and boxes equal the serial render's byte for byte on a 16-page document
 at 72 dpi; a page whose render raises raises through the pool; a timeout
-kills the pool, and ``RapidDoc`` then renders the window serially."""
+kills the pool, and ``RapidDoc`` then renders the window serially; a
+script without the ``__main__`` guard runs its top level once (the
+workers never import the program's main module)."""
 import os
+import subprocess
+import sys
+import textwrap
 import zlib
+from pathlib import Path
 from concurrent.futures import Future
 
 import numpy as np
@@ -171,11 +177,11 @@ def test_timeout_kills_the_pool_and_the_window_renders_serially(pool, clean_env)
 
     pdf = vector_pdf(16)
     pool.probe_workers()
-    procs = list(pool._POOL._processes.values())
+    procs = list(pool._POOL.procs)
     with pytest.raises(pool.PoolFault, match="TimeoutError"):
         pool.render_pages_parallel(pdf, list(range(16)), 72, False, timeout=1e-4)
     assert pool._POOL is None
-    assert procs and not any(p.is_alive() for p in procs)
+    assert procs and all(p.poll() is not None for p in procs)
     for k in ("LAYOUT", "FORMULA", "TABLE", "OCR"):
         clean_env.setenv(f"RAPIDDOC_DISABLE_{k}", "1")
     clean_env.setenv("RAPIDDOC_PDF_LOAD_IMAGES_TIMEOUT", "0.0001")
@@ -185,3 +191,43 @@ def test_timeout_kills_the_pool_and_the_window_renders_serially(pool, clean_env)
     clean_env.setenv("RAPIDDOC_PDF_CONCURRENCY_ENABLED", "0")
     want = RapidDoc(device="cpu")(pdf, parse_method="txt")
     assert got.markdown == want.markdown and got.content_list_json == want.content_list_json
+
+
+def test_a_script_without_the_main_guard_runs_its_top_level_once(tmp_path):
+    """A user's script, unguarded, that parses a 16-page document through
+    ``RapidDoc`` (one window, through the pool) and renders it through the
+    pool alone: its top level writes the marker once (``spawn`` would
+    re-run it in each of the four workers, whose start then fails), the
+    pool's rasters, text dicts and boxes equal the serial render's, and
+    no window falls back."""
+    repo = Path(__file__).resolve().parent.parent
+    marker = tmp_path / "marker.txt"
+    (tmp_path / "doc.pdf").write_bytes(vector_pdf(16, seed=3))
+    script = tmp_path / "unguarded.py"
+    script.write_text(textwrap.dedent(f"""
+        import hashlib, os, sys
+        sys.path.insert(0, {str(repo)!r})
+        with open({str(marker)!r}, "a") as f:
+            f.write(str(os.getpid()) + chr(10))
+        for k in ("LAYOUT", "FORMULA", "TABLE", "OCR"):
+            os.environ["RAPIDDOC_DISABLE_" + k] = "1"
+        from rapiddoc_tpu_torch import RapidDoc
+        from rapiddoc_tpu_torch.pdfio import open_pdf, parallel_render, render_page_full
+        pdf = open({str(tmp_path / "doc.pdf")!r}, "rb").read()
+        pooled = RapidDoc(device="cpu")(pdf, parse_method="txt")
+        stats = dict(parallel_render.stats)
+        got = parallel_render.render_pages_parallel(pdf, list(range(16)), 72, True)
+        parallel_render.kill_pool()
+        doc = open_pdf(pdf)
+        want = [render_page_full(doc.get_page(i), dpi=72, with_text=True) for i in range(16)]
+        same = all(g[0].tobytes() == w[0].tobytes() and g[2] == w[1] and g[3] == w[2]
+                   for g, w in zip(got, want))
+        print("RESULT", stats["windows"], stats["fallbacks"], same, bool(pooled.markdown))
+    """))
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("RAPIDDOC_", "MINERU_"))}
+    proc = subprocess.run([sys.executable, str(script)], cwd=tmp_path, capture_output=True,
+                          text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert len(marker.read_text().splitlines()) == 1
+    assert proc.stdout.splitlines()[-1] == "RESULT 1 0 True True"
+    assert "PoolFault" not in proc.stderr and "parallel render failed" not in proc.stderr
