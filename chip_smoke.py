@@ -68,7 +68,7 @@ per shape or run):
           rendered pages (their sha256 the golden's): fp32 (TF32 off)
           dets equal to the JAX package's golden (labels and order,
           boxes within 0.05 px), bf16 dets within limits of the bf16
-          golden; ms/page at batches 1, 2, 4 and 8; the published shape
+          golden; ms/page at batches 1 and 8; the published shape
           (B4, 800x800, 300 queries, 6 decoder layers, masks, random
           weights from a seed) at batch 8: pages/s and the device's busy
           share
@@ -92,7 +92,7 @@ per shape or run):
           UNet split into host preprocessing, device and host cell
           recovery), SLANet ms per decode step at buckets 4 and 16; the
           published UniTable shape (12x768 encoder, 4x768 decoder, random
-          weights from a seed) at batch 4 and max_len 256: decode steps/s
+          weights from a seed) at batch 4 and max_len 128: decode steps/s
           and the device's busy share
   pipeline_table  RapidDoc(device="cuda")(pdf, parse_method="ocr") on
           the layout fixture with RAPIDDOC_DEMO_LAYOUT=1 and the table
@@ -179,6 +179,13 @@ per shape or run):
           FLOPs and calls per program against the CPU golden, and a timed
           bf16 int8 parse of 16 pages printing the bench's [session],
           [mfu], [wire], [split], [workload], [overlap] and [variance]
+  train   the trainers (det, rec, orientation) from the demo checkpoints:
+          three fp32 steps (TF32 off) on the committed batches held to the
+          JAX package's golden; ms/step at the JAX trainers' batch sizes,
+          the device's busy share and its kernels by kind; host ms per
+          synthetic sample; the trained det and rec through the port's
+          registry on the OCR fixture (K1's launches held to the rec
+          dispatches)
 Then a timing line (seconds by phase), a ``{"kernels": [...]}`` line,
 the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
@@ -196,7 +203,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 N_FRAMES, C_FEAT = 10240, 120  # REC_BUCKETS batch 128 x T 80; neck width
 VOCABS = (96, 91, 18710)  # demo charset; Cyrillic demo; published ppocrv6_small_dict.txt
-TIMED_RUNS = 2
+TIMED_RUNS = 1
 CONF_RTOL, CONF_ATOL = 1e-5, 1e-8  # K1's conf against its plain version
 # The bf16 main path against the JAX package's bf16 golden. The two
 # frameworks round bf16 at different places, and the demo models'
@@ -264,7 +271,7 @@ PUBLISHED_TIE = 1e-3
 # tests/test_torch_pipeline_layout.py --compare); the margin is 5 dets.
 LAYOUT_BF16_MIN_MATCHED = 0.90
 LAYOUT_BOX_TOL = 0.05  # px, fp32 dets against the fp32 golden
-LAYOUT_BATCHES = (1, 2, 4, 8)
+LAYOUT_BATCHES = (1, 8)
 LAYOUT_TIMED_RUNS = 1  # per batch size; the published shape is timed once
 # The bf16 parse of the layout fixture against the JAX package's bf16
 # golden (int8 head on). The demo formula recognizer flips most LaTeX
@@ -290,6 +297,7 @@ TABLE_SLANET_BUCKETS = (4, 16)
 TABLE_TIMED_RUNS = 1
 UNITABLE_MAX_LEN = 256
 UNITABLE_PUBLISHED_BATCH = 4
+UNITABLE_PUBLISHED_MAX_LEN = 128  # its ms/step; the demo's crops keep UNITABLE_MAX_LEN
 # The bf16 table models on the 15 crops against the JAX package's bf16
 # outputs, and the bf16 parse with the table stage on against the bf16
 # int8 golden (python tests/test_torch_table.py --compare). The port's
@@ -350,7 +358,14 @@ class SmokeFailure(Exception):
     pass
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line carries ``t_s``, the seconds since the
+    smoke started, so that its parts can be timed from the lines."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - _T0, 2)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1886,21 +1901,21 @@ def phase_table(card: str) -> None:
     random_init(model, np.random.default_rng(0))
     pub = UniTableStructure(model)
     imgs = crops[:UNITABLE_PUBLISHED_BATCH]
-    pub(imgs, max_len=UNITABLE_MAX_LEN)
+    pub(imgs, max_len=UNITABLE_PUBLISHED_MAX_LEN)
     torch.cuda.synchronize()
     steps = pub.decode_steps
     t0 = time.perf_counter()
-    pub_out = pub(imgs, max_len=UNITABLE_MAX_LEN)
+    pub_out = pub(imgs, max_len=UNITABLE_PUBLISHED_MAX_LEN)
     torch.cuda.synchronize()
     pub_s = time.perf_counter() - t0
     pub_steps = pub.decode_steps - steps
-    kernel_ms, traced_ms = device_busy_share(lambda: pub(imgs, max_len=UNITABLE_MAX_LEN))
+    kernel_ms, traced_ms = device_busy_share(lambda: pub(imgs, max_len=UNITABLE_PUBLISHED_MAX_LEN))
     check(len(pub_out) == len(imgs), "table: the published UniTable returned no structure")
     emit({"phase": "table", "dtype": "bf16", "card": card, "crops": len(crops),
           "vs_golden_bf16": bf16_vs, "batches": batches, "slanet_buckets": slanet,
           "unitable_published": {
               "shape": "12x768 encoder, 4x768 decoder, random weights",
-              "batch": len(imgs), "max_len": UNITABLE_MAX_LEN, "steps": pub_steps,
+              "batch": len(imgs), "max_len": UNITABLE_PUBLISHED_MAX_LEN, "steps": pub_steps,
               "steps_per_s": pub_steps / pub_s, "ms_per_step": pub_s * 1e3 / pub_steps,
               "device_busy_share": kernel_ms / traced_ms}})
 
@@ -2357,7 +2372,7 @@ def phase_orientation(card: str) -> dict:
 SEAL_CROPS = ("circle", "ellipse", "arc_band", "straight_band", "no_stamp")
 SEAL_ELLIPSE_TOL = 1e-3  # px and degrees, fitEllipse's floats
 SEAL_PAGE_SIZE = (1000, 1400)
-SEAL_TIMED_RUNS = 2
+SEAL_TIMED_RUNS = 1
 # The bf16 seal texts against the JAX package's bf16 golden. The demo rec
 # reads stamp text poorly and unstably: the JAX package's own fp32 and
 # bf16 agree on 2 of the 5 seals (CER 0.444), the port's bf16 on the CPU
@@ -4423,6 +4438,242 @@ def phase_accounting(card: str) -> dict:
     return counts
 
 
+# ------------------------------------------------ the nineteenth slice: training
+
+TRAINERS = ("det", "rec", "orientation")
+TRAIN_DEMO = {"det": "ocr_det_demo.npz", "rec": "ocr_rec_demo.npz",
+              "orientation": "orientation_demo.npz"}
+# tests/test_torch_train.py: the first loss within 1e-4 of the golden (the
+# JAX trainers' step with float64 parameters), the gradient norm within
+# 1e-3 (its largest leaf sums over every pixel of white pages: float32
+# holds it to 2.3e-4 on the CPU), three steps' losses within 1e-3
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_NORM_TOL = 1e-3
+TRAIN_STEPS_TOL = 1e-3
+# relative, the drop of the loss over the three steps (the first at lr 0,
+# so the second step's update alone) against the golden's: a frozen or
+# half-sized update is off by 100 % or 50 %, float32 on the card by 3e-4
+TRAIN_DROP_TOL = 1e-2
+# the JAX trainers' defaults: det 4 pages at 640 x 640, rec 64 lines of
+# 48 x 320, orientation 16 images of 224 x 224 (the fixture's repeated)
+TRAIN_BATCH = {"det": 4, "rec": 64, "orientation": 16}
+TRAIN_TIMED_STEPS = 5
+TRAIN_SYNTH = {"det": 2, "rec": 24, "orientation": 2}  # host samples timed
+
+
+def train_batch(batches: dict, name: str, repeat: int = 1) -> tuple:
+    import numpy as np
+
+    keys = {"det": ("det_x", "det_y"), "rec": ("rec_x", "rec_labels", "rec_pad"),
+            "orientation": ("orientation_x", "orientation_y")}[name]
+    return tuple(np.concatenate([batches[k]] * repeat) for k in keys)
+
+
+def train_steps(name: str, batch: tuple, steps: int):
+    """The trainer's ``train_step`` ``steps`` times from the demo checkpoint
+    on the card: (losses, first gradient norm, (trainer, model, opt))."""
+    import torch
+
+    from rapiddoc_tpu_torch.config import DEMO_ASSETS_DIR
+    from rapiddoc_tpu_torch.models.ocr.det import DBNet
+    from rapiddoc_tpu_torch.models.ocr.rec import SVTRRec
+    from rapiddoc_tpu_torch.models.orientation.engine import OrientationNet
+    from rapiddoc_tpu_torch.models.weights import load_flax_into, load_npz
+    from rapiddoc_tpu_torch.train import det, orientation, rec
+    from rapiddoc_tpu_torch.train.bn import bn_training
+
+    trainer = {"det": det, "rec": rec, "orientation": orientation}[name]
+    model = {"det": DBNet, "rec": lambda: SVTRRec(num_classes=96),
+             "orientation": OrientationNet}[name]()
+    model = load_flax_into(model, load_npz(DEMO_ASSETS_DIR / TRAIN_DEMO[name])).cuda()
+    default_steps = {"det": 1200, "rec": 3000, "orientation": 1500}[name]
+    opt = trainer.make_optimizer(model, default_steps)
+    xs = [torch.from_numpy(a).cuda() for a in batch]
+    losses, norm = [], None
+    with bn_training(model):
+        for i in range(steps):
+            losses.append(trainer.train_step(model, opt, *xs))
+            if i == 0:
+                norm = torch.sqrt(sum((p.grad.double() ** 2).sum() for p in model.parameters()))
+    torch.cuda.synchronize()
+    return [float(v) for v in losses], float(norm), (trainer, model, opt)
+
+
+def kernel_breakdown(prof, label: str, top: int = 6) -> dict:
+    """Device ms by kind of kernel of the traced range ``label``, and its
+    top kernels."""
+    import torch
+
+    kinds = (("conv", ("conv", "xmma", "implicit", "dgrad", "wgrad", "cudnn", "winograd")),
+             ("gemm", ("gemm", "cutlass", "matmul")), ("ctc", ("ctc",)),
+             ("optimizer", ("foreach", "multi_tensor")),
+             ("reduce", ("reduce",)), ("elementwise", ("elementwise", "vectorized", "unrolled")))
+    events = prof.events()
+    span = next(e for e in events if e.name == label)
+    t0, t1 = span.time_range.start, span.time_range.end
+    by_kind: dict = {}
+    by_name: dict = {}
+    for e in events:
+        # the range ends in a synchronize: its kernels start inside it (the
+        # ranges' own device-side annotations are not kernels)
+        if (e.device_type != torch.autograd.DeviceType.CUDA or not t0 <= e.time_range.start <= t1
+                or e.name.startswith("train_")):
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        name = e.name.lower()
+        kind = next((k for k, pats in kinds if any(p in name for p in pats)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+        total, n = by_name.get(e.name[:90], (0.0, 0))
+        by_name[e.name[:90]] = (total + ms, n + 1)
+    rows = sorted(((ms, n, name) for name, (ms, n) in by_name.items()), reverse=True)
+    return {"device_ms_by_kind": by_kind,
+            "top_kernels": [{"name": name, "ms": ms, "launches": n} for ms, n, name in rows[:top]]}
+
+
+def synth_ms(fonts_note: list) -> dict:
+    """Host ms per sample of the trainers' pools (the port's synth: pages,
+    lines, turned pages), with the faces found, else the committed Aileron
+    face (for a host with neither system nor matplotlib fonts)."""
+    import random
+
+    from rapiddoc_tpu_torch.train import det, orientation, rec, synth
+
+    if not synth.FONTS:
+        synth.FONTS = [asset("aileron_pil_default.ttf")]
+    fonts_note.extend(p.name for p in synth.FONTS)
+    out = {}
+    t0 = time.perf_counter()
+    det.make_pool(TRAIN_SYNTH["det"], seed=1)
+    out["det_page_640"] = (time.perf_counter() - t0) * 1e3 / TRAIN_SYNTH["det"]
+    t0 = time.perf_counter()
+    rng = random.Random(1)
+    for _ in range(TRAIN_SYNTH["rec"]):
+        synth.rec_sample(rng, rec.WIDTH, rec.HEIGHT)
+    out["rec_line"] = (time.perf_counter() - t0) * 1e3 / TRAIN_SYNTH["rec"]
+    t0 = time.perf_counter()
+    orientation.make_pool(TRAIN_SYNTH["orientation"], seed=1)
+    out["orientation_image"] = (time.perf_counter() - t0) * 1e3 / TRAIN_SYNTH["orientation"]
+    return out
+
+
+def phase_train(card: str) -> dict:
+    """The trainers (``rapiddoc_tpu_torch/train/``) on the card.
+
+    - fp32 with TF32 off, from the demo checkpoints, on the committed
+      batches (``train_smoke_batches.npz``, made by the JAX synth): three
+      steps each, the first loss and gradient norm, the three losses and
+      the loss's drop over them held to ``train_smoke_golden.json``;
+    - the trained det and rec written as npz, read back through the
+      port's registry (``RAPIDDOC_MODELS_DIR``, the rec as a language's
+      checkpoint with its dictionary) and run on the OCR fixture's pages,
+      K1's launches held to the rec dispatches;
+    - timed: the same models go on training at the JAX trainers' batch
+      sizes (the fixture's images repeated) in the trainers' precision
+      (fp32 parameters, PyTorch's default TF32 settings: cuDNN
+      convolutions in TF32, matmuls not): ms/step, over two traced steps
+      the device ms a step and where it goes, and the busy share of an
+      untraced step (device ms a step over ms/step); host ms per
+      synthetic sample. Returns K1's launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rapiddoc_tpu_torch.models.registry import DEMO_CHARSET, build_ocr_system
+    from rapiddoc_tpu_torch.models.weights import flax_variables, load_npz, save_variables
+    from rapiddoc_tpu_torch.train.bn import bn_training
+
+    golden = json.loads(asset("train_smoke_golden.json").read_text())
+    with np.load(asset("train_smoke_batches.npz")) as z:
+        batches = {k: z[k] for k in z}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    held, runs = {}, {}
+    try:
+        for name in TRAINERS:
+            losses, norm, runs[name] = train_steps(name, train_batch(batches, name), golden["steps"])
+            want = golden[name]
+            held[name] = {"loss": losses[0], "golden_loss": want["loss"], "grad_norm": norm,
+                          "golden_grad_norm": want["grad_norm"], "losses": losses,
+                          "golden_losses": want["losses"]}
+            check(abs(losses[0] - want["loss"]) <= TRAIN_LOSS_TOL * abs(want["loss"]),
+                  f"train {name}: first loss {losses[0]} against {want['loss']}")
+            check(abs(norm - want["grad_norm"]) <= TRAIN_NORM_TOL * want["grad_norm"],
+                  f"train {name}: gradient norm {norm} against {want['grad_norm']}")
+            check(all(abs(a - b) <= TRAIN_STEPS_TOL * abs(b) for a, b in zip(losses, want["losses"])),
+                  f"train {name}: losses {losses} against {want['losses']}")
+            drop, want_drop = losses[0] - losses[-1], want["losses"][0] - want["losses"][-1]
+            held[name].update(drop=drop, golden_drop=want_drop)
+            check(abs(drop - want_drop) <= TRAIN_DROP_TOL * abs(want_drop),
+                  f"train {name}: the loss fell by {drop} against {want_drop}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    emit({"phase": "train", "part": "golden", "dtype": "fp32, TF32 off", "card": card,
+          "vs_golden": held})
+
+    with tempfile.TemporaryDirectory() as tmp:
+        save_variables(flax_variables(runs["det"][1]), Path(tmp) / "ocr_det_v6_small.npz")
+        save_variables(flax_variables(runs["rec"][1]), Path(tmp) / "ocr_rec_trained.npz")
+        (Path(tmp) / "ocr_rec_trained_dict.txt").write_text("\n".join(DEMO_CHARSET) + "\n")
+        clean_env(RAPIDDOC_MODELS_DIR=tmp)
+        try:
+            system = build_ocr_system(lang="trained", dtype=torch.float32)
+            ker = system.recognizer.session.module.head.kernel.detach().cpu().numpy()
+            check(np.array_equal(ker, load_npz(Path(tmp) / "ocr_rec_trained.npz")["params/head/kernel"]),
+                  "train: the registry did not load the trained rec")
+            with np.load(asset("ocr_smoke_pages.npz")) as z:
+                pages = list(z["pages"])
+            with LaunchCount(system.recognizer) as lc:
+                out = system(pages)
+                torch.cuda.synchronize()
+            counts = lc.check("train round trip")
+        finally:
+            clean_env()
+    lines = sum(len(r) for r in out)
+    check(lines > 0, "train: the trained OCR read no line on the fixture")
+    emit({"phase": "train", "part": "round_trip", "pages": len(pages), "lines": lines,
+          "texts": [r["text"] for r in out[0][:3]], "launches": counts})
+
+    timed, steps = {}, {}
+    for name in TRAINERS:
+        trainer, model, opt = runs[name]
+        repeat = TRAIN_BATCH[name] // len(train_batch(batches, name)[0])
+        xs = [torch.from_numpy(a).cuda() for a in train_batch(batches, name, repeat)]
+        steps[name] = (lambda t=trainer, m=model, o=opt, x=xs: t.train_step(m, o, *x))
+        with bn_training(model):
+            steps[name]()  # the new shape's first step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_TIMED_STEPS):
+                loss = steps[name]()
+            torch.cuda.synchronize()
+        check(bool(torch.isfinite(loss)), f"train {name}: a timed step's loss is not finite")
+        timed[name] = {"batch": TRAIN_BATCH[name], "shape": list(xs[0].shape),
+                       "ms_per_step": (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED_STEPS}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for name in TRAINERS:
+            with bn_training(runs[name][1]):
+                t0 = time.perf_counter()
+                with torch.profiler.record_function(f"train_{name}"):
+                    for _ in range(2):
+                        steps[name]()
+                    torch.cuda.synchronize()
+                timed[name]["traced_ms"] = (time.perf_counter() - t0) * 1e3
+    for name in TRAINERS:
+        parts = kernel_breakdown(prof, f"train_{name}")
+        device_ms = sum(parts["device_ms_by_kind"].values()) / 2
+        timed[name].update(device_busy_share=device_ms / timed[name]["ms_per_step"],
+                           device_ms_per_step=device_ms, **parts)
+    fonts: list = []
+    synth = synth_ms(fonts)
+    emit({"phase": "train", "part": "timed", "card": card,
+          "dtype": "fp32 parameters, cuDNN TF32 on, matmul TF32 off", "steps": timed,
+          "synth_host_ms_per_sample": synth, "synth_faces": fonts})
+    return counts
+
+
 def _sessions():
     from rapiddoc_tpu_torch.engine.session import live_sessions
 
@@ -4488,6 +4739,7 @@ def main() -> int:
         cli_counts = timed("cli", phase_cli, card)
         timed("hostops", phase_hostops, card)
         accounting_counts = timed("accounting", phase_accounting, card)
+        train_counts = timed("train", phase_train, card)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -4526,7 +4778,8 @@ def main() -> int:
                              "codecs": codec_launches, "webp_jpx": webp_jpx_counts["ctc_head"],
                              "serve": serve_counts["ctc_head"],
                              "cli": cli_counts["ctc_head"],
-                             "accounting": accounting_counts["ctc_head"]},
+                             "accounting": accounting_counts["ctc_head"],
+                             "train": train_counts["ctc_head"]},
         "max_abs_err": k1["max_abs_err"],
         "max_rel_err": k1["max_rel_err"], "matches_plain": True,
         "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],

@@ -236,11 +236,15 @@ def card() -> str:
 
 
 def device_busy_share(fn) -> tuple[float, float]:
-    """(device kernel ms, wall ms) of one traced call of ``fn``."""
+    """(device kernel ms, wall ms) of one traced call of ``fn``. Only the
+    device is traced: the host's operator events, which nothing here
+    reads, cost the trace's post-processing tens of seconds on a whole
+    parse or a long eager decode, and the traced call's wall less
+    overhead."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()

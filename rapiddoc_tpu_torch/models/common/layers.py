@@ -1,6 +1,6 @@
-"""Common NN building blocks in PyTorch (NCHW, inference only).
+"""Common NN building blocks in PyTorch (NCHW).
 
-Port of ``rapiddoc_tpu/models/common/layers.py:59-233``. Modules work on
+Port of ``rapiddoc_tpu/models/common/layers.py:27-36, 59-233``. Modules work on
 NCHW tensors, as PyTorch's convolutions do; the models convert from the
 JAX package's NHWC at their public ``forward``. Each module's
 parameters are named after the flax module tree so that
@@ -36,9 +36,20 @@ def _pair(v) -> tuple[int, int]:
 
 
 class BatchNorm(nn.Module):
-    """Frozen-statistics batch norm, y = (x - mean) * rsqrt(var + eps) *
-    scale + bias, written out so that it runs in bf16 as in fp32 on any
-    device. Names follow torch's BatchNorm2d."""
+    """Batch norm, y = (x - mean) * (rsqrt(var + eps) * scale) + bias,
+    written out so that it runs in bf16 as in fp32 on any device. Names
+    follow torch's BatchNorm2d.
+
+    In ``eval()`` (inference) it normalizes with the running statistics.
+    In ``train()`` it does what flax's ``nn.BatchNorm`` does inside the
+    JAX package's ``bn_training()``: the batch's mean and the biased
+    "fast" variance ``max(0, E[x^2] - E[x]^2)``, both in float32, over
+    every axis but the channel's, normalize the batch and move the
+    running statistics by ``stat = 0.99 * stat + 0.01 * batch`` (the
+    variance unbiased nowhere, which is why
+    ``torch.nn.functional.batch_norm`` is not used)."""
+
+    MOMENTUM = 0.99
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -50,10 +61,25 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.dim() - 2)
+        if self.training:
+            return self._train_forward(x, shape)
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         return (x - self.running_mean.view(shape)) * mul.view(shape) + (
             self.bias.view(shape)
         )
+
+    def _train_forward(self, x: torch.Tensor, shape: tuple) -> torch.Tensor:
+        axes = [0] + list(range(2, x.dim()))
+        xf = x.float()
+        mean = xf.mean(axes)
+        var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
 
 
 class ConvBNAct(nn.Module):

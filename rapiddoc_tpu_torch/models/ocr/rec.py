@@ -4,7 +4,11 @@ Port of ``rapiddoc_tpu/models/ocr/rec.py:21-80``: PPLCNetV4(rec, small)
 -> LightSVTR neck (2 transformer blocks) -> CTC head. The head's weight
 keeps the flax (C, V) layout, which is what the fused head kernel
 (``ops/ctc_head.py``) reads; ``features_only`` returns the (B, T, C)
-sequence that goes into it.
+sequence that goes into it. Training (``train/rec.py``) takes the
+(B, T, V) logits instead, ``seq @ kernel + bias`` in fp32 on the same
+parameter (``SVTRRec.logits``), as the JAX model's ``nn.Dense`` head
+gives them; K1 reads a copy of the kernel that follows each update
+(``CTCHead.head_kernel``'s key holds the tensor's version).
 """
 from __future__ import annotations
 
@@ -71,6 +75,10 @@ class CTCHead(nn.Module):
     def forward(self, seq: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         return ctc_head_decode(seq, self.head_kernel(), self.bias)
 
+    def logits(self, seq: torch.Tensor) -> torch.Tensor:
+        """(B, T, C) -> (B, T, V) fp32 logits, for training."""
+        return seq.float() @ self.kernel.float() + self.bias.float()
+
 
 class SVTRRec(nn.Module):
     """CTC recognizer. Input (B, 48, W, 3) normalized (NHWC); output the
@@ -92,3 +100,7 @@ class SVTRRec(nn.Module):
         if features_only:
             return seq
         return self.head(seq)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, 48, W, 3) normalized -> (B, W/8, V) fp32 CTC logits."""
+        return self.head.logits(self.forward(x, features_only=True))

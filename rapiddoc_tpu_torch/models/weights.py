@@ -27,6 +27,11 @@ its type decides the layout change:
 
 ``save_variables`` writes such an npz from a nested tree, as the
 checkpoint converters (``tools/convert_weights.py``) do.
+:func:`flax_variables` is the inverse of :func:`load_flax_into`: a
+model's tensors (or, with ``grads=True``, their gradients) as that tree,
+in the JAX layouts, which is how the trainers (``train/``) write their
+checkpoints; :func:`init_params` gives a model flax's default
+initializers in distribution, from a ``torch.Generator``.
 
 The layout checkpoint (``layout_demo.npz``: 557 arrays, 16.8 M
 parameters; or a JAX random init of the published shape, flattened) maps
@@ -64,18 +69,10 @@ def save_variables(variables: dict, path: str | Path, half: bool = False) -> Non
     """A nested flax-layout tree -> npz of flat ``a/b/c`` keys, as the JAX
     package's ``save_variables`` (``rapiddoc_tpu/models/registry.py:45``)
     writes it; ``half`` stores float32 leaves as float16."""
-    flat: dict[str, np.ndarray] = {}
-
-    def walk(node: dict, prefix: str = "") -> None:
-        for k, v in node.items():
-            key = f"{prefix}/{k}" if prefix else str(k)
-            if isinstance(v, dict):
-                walk(v, key)
-            else:
-                arr = np.asarray(v)
-                flat[key] = arr.astype(np.float16) if half and arr.dtype == np.float32 else arr
-
-    walk(variables)
+    flat = {
+        k: (v.astype(np.float16) if half and v.dtype == np.float32 else v)
+        for k, v in flatten(variables).items()
+    }
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     np.savez(str(path), **flat)
@@ -96,6 +93,23 @@ def nest_models(flat: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
         model, collection, rest = k.split("/", 2)
         out[f"{collection}/{model}/{rest}"] = v
     return out
+
+
+def flatten(variables: dict) -> dict[str, np.ndarray]:
+    """A nested tree -> flat ``a/b/c`` -> array dict (float32 arrays as
+    they are)."""
+    flat: dict[str, np.ndarray] = {}
+
+    def walk(node: dict, prefix: str = "") -> None:
+        for k, v in node.items():
+            key = f"{prefix}/{k}" if prefix else str(k)
+            if isinstance(v, dict):
+                walk(v, key)
+            else:
+                flat[key] = np.asarray(v)
+
+    walk(variables)
+    return flat
 
 
 def load_flax_into(
@@ -167,6 +181,117 @@ def load_flax_into(
     if missing or unexpected:
         raise ValueError(f"missing {missing[:8]}, unexpected {unexpected[:8]}")
     return model
+
+
+def flax_variables(model: nn.Module, grads: bool = False) -> dict:
+    """The inverse of :func:`load_flax_into`: ``{"params": …,
+    "batch_stats": …}`` as float32 numpy leaves in the JAX package's
+    layouts (OIHW -> HWIO, depthwise C1HW -> HW1C, (out, in) -> (in, out),
+    BatchNorm and LayerNorm ``scale``/``bias`` and ``mean``/``var``, the
+    GRU's six gate Denses, every other parameter as stored). With
+    ``grads`` it gives each parameter's ``.grad`` (zeros where there is
+    none) under ``params`` alone. A GRU's recurrent r and z biases, which
+    flax does not have, are folded into the input gates' biases (exact:
+    the two are summed inside the sigmoid)."""
+    params: dict = {}
+    stats: dict = {}
+
+    def arr(t: torch.Tensor | None, like: torch.Tensor) -> np.ndarray:
+        if t is None:
+            t = torch.zeros_like(like)
+        return t.detach().to("cpu", torch.float32).numpy().copy()
+
+    def val(t: torch.Tensor) -> np.ndarray:
+        return arr(t.grad if grads else t, t)
+
+    def node(tree: dict, path: str) -> dict:
+        for part in path.split(".") if path else []:
+            tree = tree.setdefault(part, {})
+        return tree
+
+    for path, mod in model.named_modules():
+        p = node(params, path) if list(mod.parameters(recurse=False)) else None
+        if isinstance(mod, nn.Conv2d):
+            p["kernel"] = val(mod.weight).transpose(2, 3, 1, 0)
+            if mod.bias is not None:
+                p["bias"] = val(mod.bias)
+        elif isinstance(mod, nn.Linear):
+            p["kernel"] = val(mod.weight).T.copy()
+            if mod.bias is not None:
+                p["bias"] = val(mod.bias)
+        elif isinstance(mod, BatchNorm):
+            p["scale"] = val(mod.weight)
+            p["bias"] = val(mod.bias)
+            if not grads:
+                s = node(stats, path)
+                s["mean"] = arr(mod.running_mean, mod.running_mean)
+                s["var"] = arr(mod.running_var, mod.running_var)
+        elif isinstance(mod, nn.LayerNorm):
+            p["scale"] = val(mod.weight)
+            p["bias"] = val(mod.bias)
+        elif isinstance(mod, nn.Embedding):
+            p["embedding"] = val(mod.weight)
+        elif isinstance(mod, nn.GRUCell):
+            w_ih, w_hh = np.split(val(mod.weight_ih), 3), np.split(val(mod.weight_hh), 3)
+            b_ih, b_hh = np.split(val(mod.bias_ih), 3), np.split(val(mod.bias_hh), 3)
+            for i, g in enumerate("rzn"):
+                p[f"i{g}"] = {"kernel": w_ih[i].T.copy(),
+                              "bias": b_ih[i] + b_hh[i] if g != "n" else b_ih[i]}
+                p[f"h{g}"] = {"kernel": w_hh[i].T.copy()}
+            p["hn"]["bias"] = b_hh[2]
+        elif p is not None:
+            for name, t in mod.named_parameters(recurse=False):
+                p[name] = val(t)
+    out = {"params": params}
+    if stats:
+        out["batch_stats"] = stats
+    return out
+
+
+def _flax_fan_in(shape: tuple[int, ...]) -> int:
+    """flax's ``variance_scaling`` fan-in of a kernel of ``shape`` (in
+    flax's layout): the second-to-last axis times the receptive field."""
+    if len(shape) < 2:
+        return shape[0] if shape else 1
+    receptive = int(np.prod(shape)) // (shape[-2] * shape[-1])
+    return shape[-2] * receptive
+
+
+def init_params(module: nn.Module, generator: torch.Generator) -> None:
+    """flax's default initializers, in distribution (not JAX's bits):
+    ``lecun_normal`` (a normal truncated at two standard deviations,
+    scaled to variance 1 / fan_in, the fan-in taken on the flax layout)
+    for every convolution, dense and bare kernel of two or more axes,
+    zeros for biases, ones and zeros for the norms' scales and biases,
+    and the running statistics at 0 and 1."""
+
+    def lecun(t: torch.Tensor, flax_shape: tuple[int, ...]) -> None:
+        std = (1.0 / _flax_fan_in(flax_shape)) ** 0.5 / 0.87962566103423978
+        draw = torch.empty(t.shape, dtype=torch.float32)
+        nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        t.copy_(draw * std)
+
+    with torch.no_grad():
+        for mod in module.modules():
+            if isinstance(mod, nn.Conv2d):
+                o, i, kh, kw = mod.weight.shape
+                lecun(mod.weight, (kh, kw, i, o))
+            elif isinstance(mod, nn.Linear):
+                lecun(mod.weight, (mod.in_features, mod.out_features))
+            elif isinstance(mod, (nn.LayerNorm, BatchNorm)):
+                mod.weight.fill_(1.0)
+            if isinstance(mod, BatchNorm):
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
+            for name, t in mod.named_parameters(recurse=False):
+                if isinstance(mod, (nn.Conv2d, nn.Linear)) and name == "weight":
+                    continue
+                if isinstance(mod, (nn.LayerNorm, BatchNorm)) and name == "weight":
+                    continue
+                if t.dim() >= 2:
+                    lecun(t, tuple(t.shape))
+                else:
+                    t.zero_()
 
 
 def random_init(module: nn.Module, rng: np.random.Generator) -> None:

@@ -15,7 +15,9 @@ bytes (``tests/test_torch_pil_draw.py`` holds them to PIL):
 - ``rotate`` by 90 or 270 degrees with ``expand`` is a transpose; any
   other angle is Pillow's affine NEAREST transform, whose source position
   is kept in 16.16 fixed point; pixels that map outside the source are 0
-  (black on RGB, transparent on RGBA).
+  (black on RGB, transparent on RGBA), or ``fillcolor`` where one is
+  given (Pillow then makes the new image in that colour and leaves those
+  pixels alone).
 - ``rotate(expand=True, resample=BICUBIC)`` of an RGBA text tile (the JAX
   renderer turns glyph tiles so) goes through premultiplied RGBa: the
   source position of each pixel centre in double, Pillow's cubic (its
@@ -177,16 +179,16 @@ def _fast_turn(img: np.ndarray, angle: float):
     return None
 
 
-def rotate_expand(img: np.ndarray, angle: float) -> np.ndarray:
-    """``Image.rotate(angle, expand=True)`` (NEAREST) of an (H, W[, C])
-    uint8 array."""
+def rotate_expand(img: np.ndarray, angle: float, fillcolor=None) -> np.ndarray:
+    """``Image.rotate(angle, expand=True[, fillcolor=...])`` (NEAREST) of an
+    (H, W[, C]) uint8 array."""
     angle = angle % 360.0
     out = _fast_turn(img, angle)
     if out is not None:
         return out
     h, w = img.shape[:2]
     nw, nh, m = _rotate_matrix(w, h, angle)
-    return _affine_nearest(img, nw, nh, m)
+    return _affine_nearest(img, nw, nh, m, fillcolor)
 
 
 def rotate_expand_bicubic(rgba: np.ndarray, angle: float) -> np.ndarray:
@@ -246,7 +248,7 @@ def _affine_bicubic(img: np.ndarray, out_w: int, out_h: int, a) -> np.ndarray:
     return out
 
 
-def _affine_nearest(img: np.ndarray, out_w: int, out_h: int, a) -> np.ndarray:
+def _affine_nearest(img: np.ndarray, out_w: int, out_h: int, a, fill=None) -> np.ndarray:
     """Pillow's ImagingTransformAffine with NEAREST: the source position of
     a pixel centre in 16.16 fixed point, stepped exactly per row and
     column, floored to the source pixel."""
@@ -263,5 +265,7 @@ def _affine_nearest(img: np.ndarray, out_w: int, out_h: int, a) -> np.ndarray:
     yin = (yo + fix(a[4]) * ys + fix(a[3]) * xs) >> 16
     inside = (xin >= 0) & (xin < w) & (yin >= 0) & (yin < h)
     out = np.zeros((out_h, out_w) + img.shape[2:], np.uint8)
+    if fill is not None:
+        out[...] = np.asarray(fill, np.uint8)
     out[inside] = img[yin[inside], xin[inside]]
     return out

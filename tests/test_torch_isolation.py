@@ -1,10 +1,12 @@
 """The port imports torch, numpy, scipy and the standard library only:
-no jax, flax, cv2, PIL, fontTools, and nothing of the JAX package. The card's
+no jax, flax, optax, cv2, PIL, matplotlib, fontTools, and nothing of the
+JAX package. The card's
 machine is not guaranteed any of those, so this is the CPU-side guard. The
 child process imports every module of the port with those blocked and runs
 the main path, Magika, the CCITT, JBIG2 and shading code, an Office
 document (a docx), an image file (a GIF), the command line and the HTTP
-service, and starts the render pool, whose workers must import none of
+service, draws a synthetic text line and takes two training steps, and
+starts the render pool, whose workers must import none of
 those (nor torch).
 
 aiohttp, click, requests and FastAPI are banned too: the JAX package's
@@ -23,7 +25,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "rapiddoc_tpu_torch"
-BANNED = ("jax", "jaxlib", "flax", "cv2", "PIL", "fontTools", "rapiddoc_tpu",
+BANNED = ("jax", "jaxlib", "flax", "optax", "cv2", "PIL", "matplotlib", "fontTools", "rapiddoc_tpu",
           "aiohttp", "click", "requests", "fastapi", "yaml", "safetensors", "tokenizers")
 
 
@@ -98,6 +100,11 @@ MAIN_PATH_MODULES = (
     # the compiled host loops and the bench's parts
     "rapiddoc_tpu_torch.utils.native", "rapiddoc_tpu_torch.tools.coldstart",
     "rapiddoc_tpu_torch.profile_heads",
+    # training: the trainers, their optimizers and synthetic data
+    "rapiddoc_tpu_torch.train.bn", "rapiddoc_tpu_torch.train.optim",
+    "rapiddoc_tpu_torch.train.synth", "rapiddoc_tpu_torch.train.det",
+    "rapiddoc_tpu_torch.train.rec", "rapiddoc_tpu_torch.train.orientation",
+    "rapiddoc_tpu_torch.pdfio.pil_filter",
 )
 
 
@@ -150,6 +157,19 @@ def test_port_imports_and_runs_with_banned_modules_blocked():
             page = z["pages"][0][:320, :480]
         out = system([page])
         assert len(out) == 1 and len(out[0]) > 0, out
+        # training: a synthetic line (no PIL, cv2 or matplotlib) and one
+        # step of each trainer's optimizer on a tiny batch
+        import random
+        from rapiddoc_tpu_torch.train import orientation, synth
+        from rapiddoc_tpu_torch.train.bn import bn_training
+        assert synth.render_line("isolated line", random.Random(0)).shape[0] == 48
+        net = orientation.new_model(0).eval()
+        opt = orientation.make_optimizer(net, 30)
+        with bn_training(net):
+            for _ in range(2):
+                loss = orientation.train_step(net, opt, torch.zeros((2, 32, 32, 3), dtype=torch.uint8),
+                                              torch.tensor([0, 1]))
+        assert torch.isfinite(loss) and not net.training
         # the main path on the first fixture page: PDF parse, JPEG decode,
         # render, OCR, assembly
         import os
