@@ -186,6 +186,15 @@ per shape or run):
           synthetic sample; the trained det and rec through the port's
           registry on the OCR fixture (K1's launches held to the rec
           dispatches)
+  train_table  the table trainers (UNet, classifier, SLANet, UniTable)
+          from the demo checkpoints: three fp32 steps (TF32 off) on the
+          committed fixture, with scheduled-sampling coins, held to the
+          JAX package's float64 golden (losses, gradient norm, argmax
+          streams); the trained models through TableRecognizer.build and
+          RapidDoc on the layout fixture under unet_slanet_plus and
+          unet_unitable (K1's launches held to the rec dispatches); ms/step
+          at the JAX trainers' batches and at the published UniTable
+          shape, busy share, kernels by kind; host ms per synthetic table
 Then a timing line (seconds by phase), a ``{"kernels": [...]}`` line,
 the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
@@ -4674,6 +4683,278 @@ def phase_train(card: str) -> dict:
     return counts
 
 
+# ------------------------------------------ the twentieth slice: table trainers
+
+TABLE_TRAINERS = ("unet", "cls", "slanet", "unitable")
+# the JAX trainers' default steps (their schedules' length) and batches:
+# UNet 2 at 1024 x 1024, the classifier 16 at 224, SLANet 8 at 488 x 160
+# head steps, UniTable 8 at 448 x 256 tokens (the fixture's tables repeated)
+TABLE_TRAIN_STEPS = {"unet": 1500, "cls": 1200, "slanet": 4000, "unitable": 12000}
+TABLE_TRAIN_BATCH = {"unet": 2, "cls": 16, "slanet": 8, "unitable": 8}
+TABLE_TIMED_STEPS = {"unet": 3, "cls": 5, "slanet": 2, "unitable": 3, "unitable_published": 2}
+TABLE_SYNTH = 8  # host samples timed of each kind
+# tests/test_torch_train_table.py's tolerances against the float64 golden
+# (the first loss, the gradient norm, the three losses, the drop over them)
+# are phase ``train``'s: TRAIN_LOSS_TOL, TRAIN_NORM_TOL, TRAIN_STEPS_TOL,
+# TRAIN_DROP_TOL
+
+
+def table_train_batch(batches: dict, name: str, repeat: int = 1) -> tuple:
+    """The fixture's batch of one trainer (``tests/test_torch_train_table.py``
+    ``fixture_batch``), ``repeat`` times along the batch axis (the coins
+    along theirs: axis 1 for SLANet's (T, B))."""
+    import numpy as np
+
+    from rapiddoc_tpu_torch.train.synth_table import TableSample
+    from rapiddoc_tpu_torch.train.table import unet_pool_row
+
+    if name == "unet":
+        x, y = unet_pool_row(TableSample(batches["unet_table"], batches["unet_line_mask"], True))
+        arrs = (x[None], y[None])
+    elif name == "cls":
+        arrs = (batches["cls_x"], batches["cls_y"])
+    elif name == "slanet":
+        arrs = tuple(batches[k] for k in ("sla_x", "sla_tok", "sla_loc", "sla_lmask", "sla_lens",
+                                          "sla_coins"))
+    else:
+        arrs = tuple(batches[k] for k in ("uni_x", "uni_tok", "uni_lens", "uni_coins"))
+    last = len(arrs) - 1
+    return tuple(np.concatenate([a] * repeat, axis=1 if name == "slanet" and i == last else 0)
+                 for i, a in enumerate(arrs))
+
+
+def table_trainer(name: str, model=None):
+    """(model on the card from the demo checkpoint, or ``model``; its
+    optimizer at the JAX trainer's default steps; a step returning (loss,
+    argmax stream or None))."""
+    from rapiddoc_tpu_torch.config import DEMO_ASSETS_DIR
+    from rapiddoc_tpu_torch.models.table.cls import TableClsNet
+    from rapiddoc_tpu_torch.models.table.slanet import SLANetConfig, SLANetModel, SLANetVocab
+    from rapiddoc_tpu_torch.models.table.unet import UNet
+    from rapiddoc_tpu_torch.models.table.unitable import UniTableModel, dims_from_variables
+    from rapiddoc_tpu_torch.models.weights import load_flax_into, load_npz, nest_models
+    from rapiddoc_tpu_torch.train import table, unitable
+
+    if model is None:
+        flat = load_npz(DEMO_ASSETS_DIR / f"table_{name}_demo.npz")
+        model = {"unet": lambda: load_flax_into(UNet(), flat),
+                 "cls": lambda: load_flax_into(TableClsNet(), flat),
+                 "slanet": lambda: load_flax_into(
+                     SLANetModel(SLANetConfig(), len(SLANetVocab())), nest_models(flat)),
+                 "unitable": lambda: load_flax_into(
+                     UniTableModel(dims_from_variables(flat)), nest_models(flat))}[name]()
+    def unitable_step(*args):
+        loss, (_, _, pred) = unitable.train_step(*args)
+        return loss, pred
+
+    model = model.cuda()
+    make_opt, step = {
+        "unet": (table.unet_optimizer, lambda *a: (table.unet_train_step(*a), None)),
+        "cls": (table.cls_optimizer, lambda *a: (table.cls_train_step(*a), None)),
+        "slanet": (table.slanet_optimizer, table.slanet_train_step),
+        "unitable": (unitable.make_optimizer, unitable_step),
+    }[name]
+    return model, make_opt(model, TABLE_TRAIN_STEPS[name]), step
+
+
+def table_synth_ms(fonts_note: list) -> dict:
+    """Host ms per sample of the table trainers' pools (the port's
+    synth_table), with the faces found, else the committed Aileron face."""
+    import random
+
+    from rapiddoc_tpu_torch.models.table.slanet import SLANetVocab
+    from rapiddoc_tpu_torch.train import synth, synth_table, table, unitable
+
+    if not synth.FONTS:
+        synth.FONTS = [asset("aileron_pil_default.ttf")]
+    fonts_note.extend(p.name for p in synth.FONTS)
+    vocab = SLANetVocab()
+    out = {}
+    for label, fn in (("render_table", lambda r: synth_table.render_table(r)),
+                      ("slanet_sample", lambda r: synth_table.slanet_sample(
+                          r, vocab, table.SLA_TRAIN_STEPS)),
+                      ("unitable_sample", unitable.unitable_sample),
+                      ("unet_pool_row", lambda r: table.unet_pool_row(
+                          synth_table.render_table(r, wired=True)))):
+        rng = random.Random(3)
+        t0 = time.perf_counter()
+        for _ in range(TABLE_SYNTH):
+            fn(rng)
+        out[label] = (time.perf_counter() - t0) * 1e3 / TABLE_SYNTH
+    return out
+
+
+def phase_train_table(card: str) -> dict:
+    """The table trainers (``train/table.py``, ``train/unitable.py``) on
+    the card.
+
+    - fp32 with TF32 off, from the demo checkpoints, on the committed
+      fixture (``train_table_smoke_batches.npz``, made by the JAX synth,
+      coins at p = 0.35): three steps each, the first loss and gradient
+      norm, the three losses, the drop over them and the first argmax
+      streams (SLANet's head steps, UniTable's first pass) held to
+      ``train_table_smoke_golden.json``;
+    - the four trained models as ``table_{unet,cls,slanet,unitable}.npz``
+      in a temporary models dir: ``TableRecognizer.build`` loads them (a
+      leaf of each equal to its file), and RapidDoc(device="cuda") parses
+      the layout fixture with the table stage on under ``unet_slanet_plus``
+      and ``unet_unitable``, K1's launches held to the rec dispatches;
+    - timed, at the JAX trainers' batches (the fixture repeated), fp32
+      parameters with PyTorch's default TF32 settings: ms/step, over one
+      traced step the device ms a step and where it goes, and the busy
+      share; UniTable also at the published ``UniTableDims()`` from a
+      seeded init; host ms per synthetic sample. Returns K1's launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rapiddoc_tpu_torch import RapidDoc
+    from rapiddoc_tpu_torch.bench import table_counts
+    from rapiddoc_tpu_torch.models.table.engine import TableRecognizer
+    from rapiddoc_tpu_torch.models.table.unitable import UniTableDims
+    from rapiddoc_tpu_torch.models.weights import (flax_variables, load_npz, save_variables,
+                                                   split_models)
+    from rapiddoc_tpu_torch.train import unitable
+    from rapiddoc_tpu_torch.train.bn import bn_training
+
+    t_phase = time.perf_counter()
+    golden = json.loads(asset("train_table_smoke_golden.json").read_text())
+    with np.load(asset("train_table_smoke_batches.npz")) as z:
+        batches = {k: z[k] for k in z}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    held, runs = {}, {}
+    try:
+        for name in TABLE_TRAINERS:
+            model, opt, step = runs[name] = table_trainer(name)
+            xs = [torch.from_numpy(a).cuda() for a in table_train_batch(batches, name)]
+            losses, norm, preds = [], None, None
+            with bn_training(model):
+                for i in range(golden["steps"]):
+                    loss, p = step(model, opt, *xs)
+                    losses.append(float(loss))
+                    if i == 0:
+                        norm = float(torch.sqrt(sum((q.grad.double() ** 2).sum()
+                                                    for q in model.parameters()
+                                                    if q.grad is not None)))
+                        preds = None if p is None else p.cpu().numpy()
+            want = golden[name]
+            drop, want_drop = losses[0] - losses[-1], want["losses"][0] - want["losses"][-1]
+            held[name] = {"loss": losses[0], "golden_loss": want["loss"], "grad_norm": norm,
+                          "golden_grad_norm": want["grad_norm"], "losses": losses,
+                          "golden_losses": want["losses"], "drop": drop, "golden_drop": want_drop}
+            if preds is not None:
+                differ = preds != np.array(want["preds"])
+                held[name].update(argmax_tokens=int(preds.size), argmax_differ=int(differ.sum()))
+            check(abs(losses[0] - want["loss"]) <= TRAIN_LOSS_TOL * abs(want["loss"]),
+                  f"train_table {name}: first loss {losses[0]} against {want['loss']}")
+            check(abs(norm - want["grad_norm"]) <= TRAIN_NORM_TOL * want["grad_norm"],
+                  f"train_table {name}: gradient norm {norm} against {want['grad_norm']}")
+            check(all(abs(a - b) <= TRAIN_STEPS_TOL * abs(b) for a, b in zip(losses, want["losses"])),
+                  f"train_table {name}: losses {losses} against {want['losses']}")
+            check(abs(drop - want_drop) <= TRAIN_DROP_TOL * abs(want_drop),
+                  f"train_table {name}: the loss fell by {drop} against {want_drop}")
+            check(preds is None or held[name]["argmax_differ"] == 0,
+                  f"train_table {name}: {held[name].get('argmax_differ')} argmax tokens differ "
+                  "from the golden's")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    emit({"phase": "train_table", "part": "golden", "dtype": "fp32, TF32 off", "card": card,
+          "coin_p": golden["coin_p"], "vs_golden": held})
+
+    launches, parsed = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in TABLE_TRAINERS:
+            tree = flax_variables(runs[name][0])
+            save_variables(tree if name in ("unet", "cls") else split_models(tree),
+                           Path(tmp) / f"table_{name}.npz", half=name == "unitable")
+        _table_env(False)
+        os.environ["RAPIDDOC_MODELS_DIR"] = tmp
+        try:
+            for strategy in ("unet_slanet_plus", "unet_unitable"):
+                built = TableRecognizer.build({"strategy": strategy}, dtype=torch.float32)
+                leaves = {"unet": (built.wired.model.head.bias, "params/head/bias"),
+                          "cls": (built.classifier.model.fc2.bias, "params/fc2/bias")}
+                wireless = strategy.split("_", 1)[1].replace("slanet_plus", "slanet")
+                leaves[wireless] = ((built.wireless.model.step.struct_fc2.bias,
+                                     "step/params/struct_fc2/bias") if wireless == "slanet" else
+                                    (built.wireless.model.decoder.generator.bias,
+                                     "decoder/params/generator/bias"))
+                for name, (got, key) in leaves.items():
+                    check(np.array_equal(got.detach().cpu().numpy(),
+                                         load_npz(Path(tmp) / f"table_{name}.npz")[key]),
+                          f"train_table: the registry did not load the trained {name}")
+                del built
+                rapid = RapidDoc(device="cuda", table_config={"strategy": strategy})
+                analyzer = rapid._stack().analyzer
+                with LaunchCount(analyzer.ocr.recognizer) as lc:
+                    out = rapid(layout_pdf(), parse_method="ocr")
+                    torch.cuda.synchronize()
+                launches[strategy] = lc.check(f"train_table round trip {strategy}")
+                counts = table_counts(analyzer.table_model)
+                tables = table_parse_summary(out)["tables"]
+                check(counts.get(f"{wireless}_dispatches", 0) > 0,
+                      f"train_table: {strategy} ran the trained {wireless} no time")
+                filled = sum(map(bool, tables))
+                check(filled > len(tables) // 2,
+                      f"train_table: {strategy} gave {filled} of {len(tables)} tables HTML")
+                parsed[strategy] = {"tables": len(tables), "tables_with_html": filled,
+                                    "table_counts": counts, "launches": launches[strategy]}
+        finally:
+            clean_env()
+    emit({"phase": "train_table", "part": "round_trip", "dtype": "bf16", "parses": parsed})
+
+    timed, steps = {}, {}
+    for name in TABLE_TRAINERS + ("unitable_published",):
+        if name == "unitable_published":
+            model, opt, step = table_trainer("unitable", unitable.new_model(0, UniTableDims()))
+            repeat = TABLE_TRAIN_BATCH["unitable"] // 2
+            xs = [torch.from_numpy(a).cuda() for a in table_train_batch(batches, "unitable", repeat)]
+        else:
+            model, opt, step = runs[name]
+            repeat = TABLE_TRAIN_BATCH[name] // len(table_train_batch(batches, name)[0])
+            xs = [torch.from_numpy(a).cuda() for a in table_train_batch(batches, name, repeat)]
+        steps[name] = (model, lambda m=model, o=opt, s=step, x=xs: s(m, o, *x)[0])
+        with bn_training(model):
+            steps[name][1]()  # the new shape's first step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TABLE_TIMED_STEPS[name]):
+                loss = steps[name][1]()
+            torch.cuda.synchronize()
+        check(bool(torch.isfinite(loss)), f"train_table {name}: a timed step's loss is not finite")
+        timed[name] = {"batch": int(xs[0].shape[0]), "shape": list(xs[0].shape),
+                       "ms_per_step": (time.perf_counter() - t0) * 1e3 / TABLE_TIMED_STEPS[name],
+                       "params": int(sum(p.numel() for p in model.parameters()))}
+    # one traced step each: the trace's host events (SLANet's head loop
+    # alone is tens of thousands of operators a step) cost more than the
+    # steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for name, (model, fn) in steps.items():
+            with bn_training(model):
+                with torch.profiler.record_function(f"train_{name}"):
+                    fn()
+                    torch.cuda.synchronize()
+    for name in steps:
+        parts = kernel_breakdown(prof, f"train_{name}")
+        device_ms = sum(parts["device_ms_by_kind"].values())
+        timed[name].update(device_busy_share=device_ms / timed[name]["ms_per_step"],
+                           device_ms_per_step=device_ms, **parts)
+    del steps, runs
+    torch.cuda.empty_cache()
+    fonts: list = []
+    synth = table_synth_ms(fonts)
+    emit({"phase": "train_table", "part": "timed", "card": card,
+          "dtype": "fp32 parameters, cuDNN TF32 on, matmul TF32 off", "steps": timed,
+          "synth_host_ms_per_sample": synth, "synth_faces": fonts,
+          "phase_s": time.perf_counter() - t_phase})
+    return {"ctc_head": sum(v["ctc_head"] for v in launches.values()),
+            "rec_dispatches": sum(v["rec_dispatches"] for v in launches.values())}
+
+
 def _sessions():
     from rapiddoc_tpu_torch.engine.session import live_sessions
 
@@ -4740,6 +5021,7 @@ def main() -> int:
         timed("hostops", phase_hostops, card)
         accounting_counts = timed("accounting", phase_accounting, card)
         train_counts = timed("train", phase_train, card)
+        train_table_counts = timed("train_table", phase_train_table, card)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -4779,7 +5061,8 @@ def main() -> int:
                              "serve": serve_counts["ctc_head"],
                              "cli": cli_counts["ctc_head"],
                              "accounting": accounting_counts["ctc_head"],
-                             "train": train_counts["ctc_head"]},
+                             "train": train_counts["ctc_head"],
+                             "train_table": train_table_counts["ctc_head"]},
         "max_abs_err": k1["max_abs_err"],
         "max_rel_err": k1["max_rel_err"], "matches_plain": True,
         "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],

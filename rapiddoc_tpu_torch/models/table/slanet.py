@@ -17,8 +17,9 @@ test is read one step late, ``engine/done_flag.py``). Softmax, argmax
 and the loc head's sigmoid run in float32. flax's ``GRUCell`` is
 torch's ``nn.GRUCell`` with the recurrent biases of r and z at zero
 (``models/weights.py`` maps its gates). The neck's bottom-up chain
-stops at the output level: the JAX package computes one more level,
-which nothing reads.
+stops at the output level in eval mode: the JAX package computes one
+more level, which nothing reads but whose batch statistics move in
+training, so ``train()`` mode runs it too.
 """
 from __future__ import annotations
 
@@ -135,11 +136,15 @@ class PANNeck(nn.Module):
         for i in range(len(reduced) - 1, 0, -1):
             h, w = reduced[i - 1].shape[2:]
             reduced[i - 1] = reduced[i - 1] + upsample_nearest(reduced[i], 2)[:, :, :h, :w]
-        x = reduced[0]
-        for i in range(1, self.out_level + 1):
+        x = out = reduced[0]
+        # in train mode the chain runs to the last level, as flax does, so
+        # that every batch norm's statistics move; its output is unused
+        for i in range(1, len(reduced) if self.training else self.out_level + 1):
             h, w = reduced[i].shape[2:]
             x = getattr(self, f"down{i}")(x)[:, :, :h, :w] + reduced[i]
-        return self.out(x)
+            if i == self.out_level:
+                out = x
+        return self.out(out)
 
 
 class SLAHeadStep(nn.Module):

@@ -4,7 +4,8 @@ Port of ``rapiddoc_tpu/models/table/unitable.py``: ``TableVocab`` (:57),
 ``whitelist_mask`` (:91), ``UniTableEncoder`` (:101), ``UniTableDims``
 and ``dims_from_variables`` (:137-204), ``FusedCachedAttention``
 (:207), ``GPTFastDecoder`` (:241), ``GPTFastBlock`` (:280),
-``unitable_decode`` (:312) and ``UniTableStructure`` (:368). The
+``unitable_decode`` (:312), ``UniTableStructure`` (:368) and
+``DEMO_UNITABLE_DIMS`` (:184). The
 decoder's cross-attention and memory projection are the formula
 decoder's ``CrossAttention`` and ``MemoryProjector``.
 
@@ -152,6 +153,13 @@ class UniTableDims:
         return self.dec_ffn
 
 
+# demo-scale dims of the committed asset (about 7 M parameters; the
+# published shape is about 120 M), the UniTable trainer's default
+DEMO_UNITABLE_DIMS = UniTableDims(
+    enc_d=256, enc_layers=4, dec_d=256, dec_layers=2, dec_ffn=1024
+)
+
+
 def dims_from_variables(flat: dict[str, np.ndarray]) -> UniTableDims:
     """UniTableDims from a checkpoint's flat ``encoder/…``,
     ``decoder/…`` leaves."""
@@ -247,12 +255,15 @@ class GPTFastDecoder(nn.Module):
 
     def forward(self, tokens, caches_k, caches_v, position: int, mem_k_layers,
                 mem_v_layers, mem_mask):
-        """tokens (B, T); caches (L, B, S, H, hd), written in place.
-        Returns logits (B, T, vocab)."""
+        """tokens (B, T); caches (L, B, S, H, hd), or a sequence of L
+        separate (B, S, H, hd) tensors, written in place. Returns logits
+        (B, T, vocab). A backward pass needs the sequence: the layers'
+        views of one stacked tensor share its version counter, so a later
+        layer's write invalidates what an earlier layer saved."""
         t = tokens.shape[1]
         x = self.token_embed(tokens)
         x = x + self.pos_embed[position:position + t][None].to(x.dtype)
-        s = caches_k.shape[2]
+        s = caches_k[0].shape[1]
         key_pos = torch.arange(s, device=x.device)
         query_pos = position + torch.arange(t, device=x.device)
         mask = (key_pos[None, :] <= query_pos[:, None])[None, None]

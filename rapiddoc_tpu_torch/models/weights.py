@@ -95,6 +95,17 @@ def nest_models(flat: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
     return out
 
 
+def split_models(variables: dict) -> dict:
+    """The inverse of :func:`nest_models` on trees: ``{"params": {model:
+    …}, "batch_stats": {model: …}}`` -> ``{model: {"params": …,
+    "batch_stats": …}}``, the layout of a checkpoint of several models."""
+    out: dict = {}
+    for collection, models in variables.items():
+        for model, tree in models.items():
+            out.setdefault(model, {})[collection] = tree
+    return out
+
+
 def flatten(variables: dict) -> dict[str, np.ndarray]:
     """A nested tree -> flat ``a/b/c`` -> array dict (float32 arrays as
     they are)."""
@@ -263,7 +274,10 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
     scaled to variance 1 / fan_in, the fan-in taken on the flax layout)
     for every convolution, dense and bare kernel of two or more axes,
     zeros for biases, ones and zeros for the norms' scales and biases,
-    and the running statistics at 0 and 1."""
+    and the running statistics at 0 and 1; ``nn.Embed``'s normal of
+    variance 1 / features for embeddings, ``GRUCell``'s ``lecun_normal``
+    input and ``orthogonal`` recurrent kernels gate by gate, and the
+    normal(0.02) of the UniTable modules' learned ``pos_embed``."""
 
     def lecun(t: torch.Tensor, flax_shape: tuple[int, ...]) -> None:
         std = (1.0 / _flax_fan_in(flax_shape)) ** 0.5 / 0.87962566103423978
@@ -271,24 +285,41 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
         nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0, generator=generator)
         t.copy_(draw * std)
 
+    def normal(t: torch.Tensor, std: float) -> None:
+        t.copy_(torch.randn(t.shape, generator=generator) * std)
+
     with torch.no_grad():
         for mod in module.modules():
+            done: tuple[str, ...] = ()
             if isinstance(mod, nn.Conv2d):
                 o, i, kh, kw = mod.weight.shape
                 lecun(mod.weight, (kh, kw, i, o))
+                done = ("weight",)
             elif isinstance(mod, nn.Linear):
                 lecun(mod.weight, (mod.in_features, mod.out_features))
+                done = ("weight",)
             elif isinstance(mod, (nn.LayerNorm, BatchNorm)):
                 mod.weight.fill_(1.0)
+                done = ("weight",)
+            elif isinstance(mod, nn.Embedding):
+                normal(mod.weight, mod.embedding_dim ** -0.5)
+                done = ("weight",)
+            elif isinstance(mod, nn.GRUCell):
+                h = mod.hidden_size
+                for g in range(3):
+                    lecun(mod.weight_ih[g * h:(g + 1) * h], (mod.input_size, h))
+                    mod.weight_hh[g * h:(g + 1) * h].copy_(
+                        nn.init.orthogonal_(torch.empty(h, h), generator=generator))
+                done = ("weight_ih", "weight_hh")
             if isinstance(mod, BatchNorm):
                 mod.running_mean.zero_()
                 mod.running_var.fill_(1.0)
             for name, t in mod.named_parameters(recurse=False):
-                if isinstance(mod, (nn.Conv2d, nn.Linear)) and name == "weight":
+                if name in done:
                     continue
-                if isinstance(mod, (nn.LayerNorm, BatchNorm)) and name == "weight":
-                    continue
-                if t.dim() >= 2:
+                if name == "pos_embed":
+                    normal(t, 0.02)
+                elif t.dim() >= 2:
                     lecun(t, tuple(t.shape))
                 else:
                     t.zero_()

@@ -9,14 +9,15 @@ and orientation weights the main path runs, from pages and lines drawn by
 Ported: ``bn`` (train-mode batch statistics, see
 ``models/common/layers.BatchNorm``), ``optim`` (optax's ``adam``,
 ``adamw``, ``warmup_cosine_decay_schedule`` and ``clip_by_global_norm``),
-``synth``, ``det`` (DBNet), ``rec`` (SVTR/CTC, per language) and
-``orientation``. Checkpoints are written as the JAX package writes them
-(``models/weights.save_variables`` of ``flax_variables``), so both
-packages' registries read them.
+``synth``, ``det`` (DBNet), ``rec`` (SVTR/CTC, per language),
+``orientation``, ``synth_table`` (synthetic tables with their grid,
+tokens and cell boxes), ``table`` (the UNet, the wired/wireless
+classifier and SLANet) and ``unitable``. Checkpoints are written as the
+JAX package writes them (``models/weights.save_variables`` of
+``flax_variables``), so both packages' registries read them.
 
-Not ported yet: ``table`` (the table classifier, UNet and SLANet),
-``unitable`` and their ``synth_table``; ``layout`` and ``formula``, whose
-synthetic pages need matplotlib's mathtext (``synth_layout``).
+Not ported yet: ``layout`` and ``formula``, whose synthetic pages need
+matplotlib's mathtext (``synth_layout``).
 
 Every trainer runs on the card unless the caller passes ``device="cpu"``;
 a failed CUDA step raises.

@@ -105,6 +105,9 @@ MAIN_PATH_MODULES = (
     "rapiddoc_tpu_torch.train.synth", "rapiddoc_tpu_torch.train.det",
     "rapiddoc_tpu_torch.train.rec", "rapiddoc_tpu_torch.train.orientation",
     "rapiddoc_tpu_torch.pdfio.pil_filter",
+    # the table trainers and their synthetic tables
+    "rapiddoc_tpu_torch.train.synth_table", "rapiddoc_tpu_torch.train.table",
+    "rapiddoc_tpu_torch.train.unitable",
 )
 
 
