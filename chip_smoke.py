@@ -195,6 +195,19 @@ per shape or run):
           unet_unitable (K1's launches held to the rec dispatches); ms/step
           at the JAX trainers' batches and at the published UniTable
           shape, busy share, kernels by kind; host ms per synthetic table
+  train_layout  the layout and formula trainers: the mathtext replay on 24
+          committed formulas (byte-equal to matplotlib's unhinted renders,
+          within the band of its default ones, ms a render); three fp32
+          steps (TF32 off) of each from the demo checkpoints on the
+          committed fixture, held to the JAX package's float64 golden
+          (losses, gradient norm, every layer's step-one matching); the
+          trained checkpoints through the port's registry and RapidDoc on
+          the layout fixture under RAPIDDOC_DEMO_LAYOUT=1 and
+          RAPIDDOC_INT8_HEAD=1 (K1's launches held to the rec dispatches,
+          K2's to the decode steps); ms/step at the JAX trainers' batches
+          (layout 8 x 640 with the matching's host share, formula 16),
+          busy share, kernels by kind; host ms per synthetic page and
+          formula crop
 Then a timing line (seconds by phase), a ``{"kernels": [...]}`` line,
 the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
@@ -4955,6 +4968,342 @@ def phase_train_table(card: str) -> dict:
             "rec_dispatches": sum(v["rec_dispatches"] for v in launches.values())}
 
 
+# the JAX trainers' default steps (their schedules' length) and batches:
+# layout 8 pages at 640 x 640, formula 16 crops at 96 x 384
+LAYOUT_TRAIN_STEPS, FORMULA_TRAIN_STEPS = 12000, 16000
+LAYOUT_TRAIN_BATCH, FORMULA_TRAIN_BATCH = 8, 16
+LAYOUT_TIMED_STEPS, FORMULA_TIMED_STEPS = 2, 3
+LAYOUT_FIXTURE_SEED = 7  # tests/torch_train_layout_fixtures.py FIXTURE_SEED
+# tests/test_torch_mathtext.py's band of the default (autohinted) renders:
+# matplotlib's ink mass over the replay's, the inked rows' and columns'
+# extents in px
+MATHTEXT_BAND = {"ink_mass": (0.90, 1.20), "rows": 3, "cols": 2}
+# the three steps' losses against the float64 golden, relative; the first
+# loss and gradient norm use phase train's TRAIN_LOSS_TOL and
+# TRAIN_NORM_TOL
+LAYOUT_STEPS_TOL = 1e-4
+
+
+def formula_aug_draws(seed: int, n: int, hw=(96, 384)):
+    """The golden's augmentation draws (``tests/torch_train_layout_fixtures
+    .aug_draws``): contrast, brightness and unit noise from a numpy seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(0.6, 1.4, n).astype(np.float32)
+    b = rng.uniform(-0.12, 0.12, n).astype(np.float32)
+    noise = rng.standard_normal((n, *hw, 1)).astype(np.float32)
+    return c, b, noise
+
+
+def mathtext_renders() -> list:
+    """The committed matplotlib renders: (latex, dpi, unhinted R plane,
+    default R plane)."""
+    import numpy as np
+
+    with np.load(asset("mathtext_smoke_renders.npz")) as z:
+        r = {k: z[k] for k in z}
+    out, at = [], 0
+    for latex, dpi, (h, w) in zip(r["latex"], r["dpi"], r["shapes"]):
+        n = int(h) * int(w)
+        out.append((str(latex), int(dpi), r["none"][at:at + n].reshape(h, w),
+                    r["default"][at:at + n].reshape(h, w)))
+        at += n
+    return out
+
+
+def check_mathtext() -> dict:
+    """The replay on the committed formulas: byte-equal to the unhinted
+    renders, within the band of the default ones; ms a render."""
+    import numpy as np
+
+    from rapiddoc_tpu_torch.utils.mathtext import math_to_image
+
+    ratios, rows, cols, ms = [], [], [], []
+    for latex, dpi, none, default in mathtext_renders():
+        t0 = time.perf_counter()
+        img = math_to_image(latex, dpi)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(img.shape[:2] == none.shape, f"mathtext {latex!r} at {dpi}: shape {img.shape}")
+        check(bool((img[..., 3] == 255).all()) and np.array_equal(img[..., 0], none)
+              and np.array_equal(img[..., 1], none) and np.array_equal(img[..., 2], none),
+              f"mathtext {latex!r} at {dpi}: not byte-equal to matplotlib's unhinted render")
+        ink_d, ink_g = 255 - default.astype(np.int64), 255 - img[..., 0].astype(np.int64)
+        ratios.append(float(ink_d.sum() / ink_g.sum()))
+        (yd, xd), (yg, xg) = np.nonzero(ink_d), np.nonzero(ink_g)
+        rows.append(int(max(abs(yd.min() - yg.min()), abs(yd.max() - yg.max()))))
+        cols.append(int(max(abs(xd.min() - xg.min()), abs(xd.max() - xg.max()))))
+    band = MATHTEXT_BAND
+    check(band["ink_mass"][0] <= min(ratios) and max(ratios) <= band["ink_mass"][1],
+          f"mathtext: ink mass against the default renders {min(ratios)}-{max(ratios)}")
+    check(max(rows) <= band["rows"] and max(cols) <= band["cols"],
+          f"mathtext: extents {max(rows)} rows, {max(cols)} columns from the default renders")
+    return {"formulas": len(ms), "byte_equal_unhinted": len(ms),
+            "default_ink_mass": [min(ratios), max(ratios)], "default_rows_max": max(rows),
+            "default_cols_max": max(cols), "ms_per_render": sum(ms) / len(ms),
+            "ms_max": max(ms)}
+
+
+def layout_train_batch(batches: dict, repeat: int = 1) -> tuple:
+    import numpy as np
+
+    return tuple(np.concatenate([batches[k]] * repeat)
+                 for k in ("layout_x", "layout_tcls", "layout_tbox"))
+
+
+def formula_train_batch(batches: dict, repeat: int = 1) -> tuple:
+    import numpy as np
+
+    arrs = (batches["formula_x"], batches["formula_tok"], batches["formula_lens"],
+            *formula_aug_draws(LAYOUT_FIXTURE_SEED, len(batches["formula_x"])))
+    return tuple(np.concatenate([a] * repeat) for a in arrs)
+
+
+def layout_trainers():
+    """(layout model, its optimizer, formula model, its optimizer) on the
+    card from the demo checkpoints, at the JAX trainers' default steps."""
+    from rapiddoc_tpu_torch.config import DEMO_ASSETS_DIR
+    from rapiddoc_tpu_torch.models.weights import load_npz
+    from rapiddoc_tpu_torch.train import formula, layout
+
+    lm = layout.new_model(variables=load_npz(DEMO_ASSETS_DIR / "layout_demo.npz")).cuda()
+    flat = load_npz(DEMO_ASSETS_DIR / "formula_demo.npz")
+    fm = formula.new_model(flat["decoder/params/embed_tokens/embedding"].shape[0],
+                           variables=flat).cuda()
+    return (lm, layout.make_optimizer(lm, LAYOUT_TRAIN_STEPS),
+            fm, formula.make_optimizer(fm, FORMULA_TRAIN_STEPS))
+
+
+def grad_norm_of(model) -> float:
+    import torch
+
+    return float(torch.sqrt(sum((p.grad.double() ** 2).sum() for p in model.parameters()
+                                if p.grad is not None)))
+
+
+def phase_train_layout(card: str) -> dict:
+    """The mathtext replay and the layout and formula trainers
+    (``utils/mathtext.py``, ``train/{synth_layout,layout,formula}.py``) on
+    the card.
+
+    - the replay on the committed formulas, on the card's host: byte-equal
+      to matplotlib's ``text.hinting: none`` renders and within the test's
+      band of its default ones, ms a render;
+    - fp32 with TF32 off, from the demo checkpoints, on the committed
+      fixture (``train_layout_smoke_batches.npz``, made by the JAX code;
+      the formula augmentation's draws from a numpy seed): three steps
+      each, the first loss, the gradient norm, the three losses and (for
+      the layout trainer) every layer's step-one matching held to
+      ``train_layout_smoke_golden.json``;
+    - bf16: the two trained models saved as the trainers save them, read
+      by the port's registry from a demo folder holding them, and
+      RapidDoc(device="cuda") on the layout fixture under
+      RAPIDDOC_DEMO_LAYOUT=1 and RAPIDDOC_INT8_HEAD=1: K1's launches held
+      to the rec dispatches and K2's to the decode steps;
+    - timed, at the JAX trainers' batches (the fixture repeated), fp32
+      parameters with PyTorch's default TF32 settings: ms/step (the
+      layout step's matching pass and its host part apart), over one
+      traced step each the device ms and where it goes, the busy share;
+      host ms per ``render_layout_page`` (640) and ``render_formula``.
+    Returns the launches of K1 and K2 with the rec dispatches and decode
+    steps."""
+    import random
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rapiddoc_tpu_torch import RapidDoc
+    from rapiddoc_tpu_torch.config import DEMO_ASSETS_DIR
+    from rapiddoc_tpu_torch.models import registry
+    from rapiddoc_tpu_torch.models.layout import engine as layout_engine
+    from rapiddoc_tpu_torch.models.weights import flax_variables, load_npz
+    from rapiddoc_tpu_torch.ops.ctc_head import fused_ctc_argmax
+    from rapiddoc_tpu_torch.ops.quant_head import fused_argmax_int8
+    from rapiddoc_tpu_torch.train import formula, layout, synth, synth_layout
+    from rapiddoc_tpu_torch.train.bn import bn_training
+
+    t_phase = time.perf_counter()
+    emit({"phase": "train_layout", "part": "mathtext", "host": "the card's", **check_mathtext()})
+
+    golden = json.loads(asset("train_layout_smoke_golden.json").read_text())
+    with np.load(asset("train_layout_smoke_batches.npz")) as z:
+        batches = {k: z[k] for k in z}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    held = {}
+    try:
+        lm, lopt, fm, fopt = layout_trainers()
+        x, tcls, tbox = layout_train_batch(batches)
+        xd = torch.from_numpy(x).cuda()
+        fx = [torch.from_numpy(a).cuda() for a in formula_train_batch(batches)]
+        runs = {"layout": [], "formula": []}
+        with bn_training(lm), bn_training(fm):
+            for i in range(golden["steps"]):
+                loss, qcls = layout.train_step(lm, lopt, xd, tcls, tbox)
+                runs["layout"].append(float(loss))
+                if i == 0:
+                    lnorm, lq = grad_norm_of(lm), qcls
+                runs["formula"].append(float(formula.train_step(fm, fopt, *fx)))
+                if i == 0:
+                    fnorm = grad_norm_of(fm)
+        for name, norm in (("layout", lnorm), ("formula", fnorm)):
+            want, losses = golden[name], runs[name]
+            held[name] = {"loss": losses[0], "golden_loss": want["loss"], "grad_norm": norm,
+                          "golden_grad_norm": want["grad_norm"], "losses": losses,
+                          "golden_losses": want["losses"]}
+            check(abs(losses[0] - want["loss"]) <= TRAIN_LOSS_TOL * abs(want["loss"]),
+                  f"train_layout {name}: first loss {losses[0]} against {want['loss']}")
+            check(abs(norm - want["grad_norm"]) <= TRAIN_NORM_TOL * want["grad_norm"],
+                  f"train_layout {name}: gradient norm {norm} against {want['grad_norm']}")
+            check(all(abs(a - b) <= LAYOUT_STEPS_TOL * abs(b)
+                      for a, b in zip(losses, want["losses"])),
+                  f"train_layout {name}: losses {losses} against {want['losses']}")
+        differ = int((lq != np.array(golden["layout"]["qcls"])).sum())
+        held["layout"].update(matched_queries=int((lq >= 0).sum()), matching_differ=differ)
+        check(differ == 0, f"train_layout: {differ} matched queries differ from the golden's")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    emit({"phase": "train_layout", "part": "golden", "dtype": "fp32, TF32 off", "card": card,
+          "vs_golden": held})
+
+    with tempfile.TemporaryDirectory() as tmp:
+        demo = Path(tmp)
+        for f in DEMO_ASSETS_DIR.iterdir():
+            (demo / f.name).symlink_to(f)
+        for name in ("layout_demo", "formula_demo"):
+            for suffix in (".npz", ".json"):
+                (demo / f"{name}{suffix}").unlink()
+        layout.save_demo(flax_variables(lm), demo / "layout_demo.npz")
+        formula.save_demo(formula.checkpoint(fm), formula.build_vocab(), demo / "formula_demo.npz")
+        saved_dirs = (registry.DEMO_ASSETS_DIR, layout_engine.DEMO_ASSETS_DIR)
+        registry.DEMO_ASSETS_DIR = layout_engine.DEMO_ASSETS_DIR = demo
+        try:
+            _layout_env(True)
+            rapid = RapidDoc(device="cuda")
+            analyzer = rapid._stack().analyzer
+            lsaved, fsaved = load_npz(demo / "layout_demo.npz"), load_npz(demo / "formula_demo.npz")
+            fmodel = analyzer.formula_model
+            for got, want, label in (
+                    (analyzer.layout_model.session.module.class_head.bias,
+                     lsaved["params/class_head/bias"], "layout detector"),
+                    (fmodel.decoder.embed_positions, fsaved["decoder/params/embed_positions"],
+                     "formula recognizer")):
+                check(torch.equal(got.detach().float().cpu(),
+                                  torch.from_numpy(want).to(got.dtype).float()),
+                      f"train_layout: the registry did not load the trained {label}")
+            rec, fstats = analyzer.ocr.recognizer.session.stats, fmodel.stats
+            calls, steps = rec.calls, fstats.decode_steps
+            fused_ctc_argmax.launches = 0
+            fused_argmax_int8.launches = 0
+            out = rapid(layout_pdf(), parse_method="ocr")
+            torch.cuda.synchronize()
+            counts = {"ctc_head": fused_ctc_argmax.launches, "quant_head": fused_argmax_int8.launches,
+                      "rec_dispatches": rec.calls - calls,
+                      "decode_steps": fstats.decode_steps - steps}
+        finally:
+            registry.DEMO_ASSETS_DIR, layout_engine.DEMO_ASSETS_DIR = saved_dirs
+            clean_env()
+    summary = parse_summary(out)
+    kinds: dict = {}
+    for page in out.model_json:
+        for d in page["layout_dets"]:
+            kinds[d["category_id"]] = kinds.get(d["category_id"], 0) + 1
+    emit({"phase": "train_layout", "part": "round_trip", "dtype": "bf16", "int8_head": True,
+          "pages": len(out.model_json), "layout_dets_by_category": kinds,
+          "latex": len(summary["latex"]), "launches": counts})
+    check(counts["ctc_head"] > 0 and counts["ctc_head"] == counts["rec_dispatches"],
+          f"train_layout round trip: {counts['ctc_head']} K1 launches for "
+          f"{counts['rec_dispatches']} rec dispatches")
+    check(counts["quant_head"] > 0 and counts["quant_head"] == counts["decode_steps"],
+          f"train_layout round trip: {counts['quant_head']} K2 launches for "
+          f"{counts['decode_steps']} decode steps")
+
+    # the trainers' precision, PyTorch's defaults (cuDNN TF32 on, matmul
+    # TF32 off), whatever an earlier phase of the smoke left set
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        timed = {}
+        x, tcls, tbox = layout_train_batch(batches, LAYOUT_TRAIN_BATCH // len(batches["layout_x"]))
+        xd = torch.from_numpy(x).cuda()
+        fx = [torch.from_numpy(a).cuda() for a in formula_train_batch(
+            batches, FORMULA_TRAIN_BATCH // len(batches["formula_x"]))[:3]]
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        steps = {"layout": (lm, lambda: layout.train_step(lm, lopt, xd, tcls, tbox)[0]),
+                 "formula": (fm, lambda: formula.train_step(
+                     fm, fopt, *fx, *formula.draw_augment(gen, fx[0].shape[0], "cuda")))}
+        n_steps = {"layout": LAYOUT_TIMED_STEPS, "formula": FORMULA_TIMED_STEPS}
+        for name, (model, fn) in steps.items():
+            with bn_training(model):
+                fn()  # the new shape's first step
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n_steps[name]):
+                    loss = fn()
+                torch.cuda.synchronize()
+            check(bool(torch.isfinite(loss)), f"train_layout {name}: a timed step's loss is not finite")
+            timed[name] = {"batch": int(fx[0].shape[0] if name == "formula" else xd.shape[0]),
+                           "ms_per_step": (time.perf_counter() - t0) * 1e3 / n_steps[name],
+                           "params": int(sum(p.numel() for p in model.parameters()))}
+        # the layout step's matching pass alone, and its host part (the
+        # Hungarian matching of every layer on the fetched predictions)
+        with bn_training(lm):
+            t0 = time.perf_counter()
+            host = 0.0
+            for _ in range(n_steps["layout"]):
+                with torch.no_grad():
+                    logits, boxes = layout.predictions(lm, xd)
+                logits, boxes = logits.cpu().numpy(), boxes.cpu().numpy()
+                t1 = time.perf_counter()
+                for li in range(logits.shape[0]):
+                    layout.match_batch(logits[li], boxes[li], tcls, tbox)
+                host += time.perf_counter() - t1
+            total = time.perf_counter() - t0
+        host_ms = host * 1e3 / n_steps["layout"]
+        timed["layout"].update(matching_pass_ms=total * 1e3 / n_steps["layout"],
+                               matching_host_ms=host_ms,
+                               matching_host_share=host_ms / timed["layout"]["ms_per_step"])
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for name, (model, fn) in steps.items():
+                with bn_training(model):
+                    with torch.profiler.record_function(f"train_{name}"):
+                        fn()
+                        torch.cuda.synchronize()
+        for name in steps:
+            parts = kernel_breakdown(prof, f"train_{name}")
+            device_ms = sum(parts["device_ms_by_kind"].values())
+            timed[name].update(device_busy_share=device_ms / timed[name]["ms_per_step"],
+                               device_ms_per_step=device_ms, **parts)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    del steps, lm, fm, lopt, fopt
+    torch.cuda.empty_cache()
+
+    if not synth.FONTS:
+        synth.FONTS = [asset("aileron_pil_default.ttf")]
+    host = {}
+    t0 = time.perf_counter()
+    synth_layout.FORMULAS.sample(random.Random(0))
+    host["formula_cache_240_s"] = time.perf_counter() - t0
+    rng = random.Random(5)
+    t0 = time.perf_counter()
+    for _ in range(2):
+        synth_layout.render_layout_page(rng, 640, height=int(640 * 1.294))
+    host["render_layout_page_640_ms"] = (time.perf_counter() - t0) * 1e3 / 2
+    rng = random.Random(6)
+    t0 = time.perf_counter()
+    for _ in range(8):
+        formula.render_formula(synth_layout.random_latex(rng), rng)
+    host["render_formula_ms"] = (time.perf_counter() - t0) * 1e3 / 8
+    emit({"phase": "train_layout", "part": "timed", "card": card,
+          "dtype": "fp32 parameters, cuDNN TF32 on, matmul TF32 off", "steps": timed,
+          "host": host, "synth_faces": [p.name for p in synth.FONTS],
+          "phase_s": time.perf_counter() - t_phase})
+    return counts
+
 def _sessions():
     from rapiddoc_tpu_torch.engine.session import live_sessions
 
@@ -5022,6 +5371,7 @@ def main() -> int:
         accounting_counts = timed("accounting", phase_accounting, card)
         train_counts = timed("train", phase_train, card)
         train_table_counts = timed("train_table", phase_train_table, card)
+        train_layout_counts = timed("train_layout", phase_train_layout, card)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -5062,7 +5412,8 @@ def main() -> int:
                              "cli": cli_counts["ctc_head"],
                              "accounting": accounting_counts["ctc_head"],
                              "train": train_counts["ctc_head"],
-                             "train_table": train_table_counts["ctc_head"]},
+                             "train_table": train_table_counts["ctc_head"],
+                             "train_layout": train_layout_counts["ctc_head"]},
         "max_abs_err": k1["max_abs_err"],
         "max_rel_err": k1["max_rel_err"], "matches_plain": True,
         "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
@@ -5088,7 +5439,8 @@ def main() -> int:
                              "webp_jpx": webp_jpx_counts["quant_head"],
                              "serve": serve_counts["quant_head"],
                              "cli": cli_counts["quant_head"],
-                             "accounting": accounting_counts["quant_head"]},
+                             "accounting": accounting_counts["quant_head"],
+                             "train_layout": train_layout_counts["quant_head"]},
         "max_abs_err": k2["max_abs_err"],
         "max_rel_err": k2["max_rel_err"], "matches_plain": True,
         "ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"],

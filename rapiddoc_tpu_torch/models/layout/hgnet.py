@@ -199,8 +199,10 @@ class HGStage(nn.Module):
 class PPHGNetV2(nn.Module):
     """Returns the NHWC features at the requested stage indices. The
     stages past the last requested one hold weights (a checkpoint of the
-    whole backbone loads) but do not run: their output is unused, which
-    XLA's dead-code pass also finds in the JAX package."""
+    whole backbone loads) but do not run in inference: their output is
+    unused, which XLA's dead-code pass also finds in the JAX package. In
+    train mode they run, output unused, because flax's batch statistics
+    move there too (the formula encoder stops at stage 2 of 4)."""
 
     def __init__(self, size: str = "B4", out_indices: tuple[int, ...] = (1, 2, 3)):
         super().__init__()
@@ -217,7 +219,8 @@ class PPHGNetV2(nn.Module):
     def forward(self, x_nhwc: torch.Tensor) -> list[torch.Tensor]:
         x = self.stem(x_nhwc.permute(0, 3, 1, 2))
         feats = []
-        for si in range(max(self.out_indices) + 1):
+        last = self.n_stages - 1 if self.training else max(self.out_indices)
+        for si in range(last + 1):
             x = getattr(self, f"stage{si}")(x)
             if si in self.out_indices:
                 feats.append(x.permute(0, 2, 3, 1))

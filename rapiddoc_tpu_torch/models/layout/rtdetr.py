@@ -330,16 +330,24 @@ def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 class RTDETR(nn.Module):
     """Full detector. Input NHWC in [0,1]; output dict with per-query
-    scores/labels/boxes (cxcywh normalized, float32), in score order."""
+    scores/labels/boxes (cxcywh normalized, float32), in score order.
+
+    ``aux`` (training) also returns each decoder layer's logits and boxes
+    (``aux_logits`` (L, B, Nq, C), ``aux_boxes``) and the encoder's
+    query-selection head at the top-k queries (``enc_logits``,
+    ``enc_boxes``): the DETR auxiliary losses. The selected queries and
+    each layer's boxes but the last are detached, as the JAX model stops
+    their gradients; no parameter is added."""
 
     def __init__(self, num_classes: int = 25, backbone_size: str = "B4", dim: int = 256,
                  num_queries: int = 300, dec_layers: int = 6, heads: int = 8,
                  ffn: int = 1024, points: int = 4, with_masks: bool = False,
-                 mask_dim: int = 32):
+                 mask_dim: int = 32, aux: bool = False):
         super().__init__()
         self.num_queries = num_queries
         self.dec_layers = dec_layers
         self.with_masks = with_masks
+        self.aux = aux
         self.backbone = PPHGNetV2(backbone_size)
         chans = PPHGNetV2.out_channels(backbone_size)
         self.encoder = HybridEncoder(chans, dim, heads, ffn)
@@ -383,17 +391,31 @@ class RTDETR(nn.Module):
         topk = torch.sort(enc_scores, dim=1, descending=True, stable=True)[1][:, : self.num_queries]
         ref = torch.gather(enc_boxes, 1, topk[..., None].expand(-1, -1, 4))
         tgt = torch.gather(enc_feat, 1, topk[..., None].expand(-1, -1, enc_feat.shape[-1]))
+        tgt, ref = tgt.detach(), ref.detach()
 
         value_levels = [f.permute(0, 2, 3, 1) for f in levels]
+        aux_feats, aux_boxes = [], []
         for i in range(self.dec_layers):
             query_pos = self.query_pos_head(ref.to(tgt.dtype))
             tgt = getattr(self, f"decoder{i}")(tgt, query_pos, ref, value_levels)
             delta = getattr(self, f"bbox_head{i}")(tgt)
             ref = torch.sigmoid(delta.float() + inverse_sigmoid(ref.float()))
+            if self.aux:
+                aux_feats.append(tgt)
+                aux_boxes.append(ref)
+            if i < self.dec_layers - 1:
+                ref = ref.detach()
 
-        probs = torch.sigmoid(self.class_head(tgt).float())
+        logits = self.class_head(tgt)
+        probs = torch.sigmoid(logits.float())
         scores, labels = probs.max(dim=-1)
         out = {"scores": scores, "labels": labels, "boxes": ref}
+        if self.aux:
+            out["aux_logits"] = torch.stack([self.class_head(f) for f in aux_feats])
+            out["aux_boxes"] = torch.stack(aux_boxes)
+            idx = topk[..., None]
+            out["enc_logits"] = torch.gather(enc_logits, 1, idx.expand(-1, -1, enc_logits.shape[-1]))
+            out["enc_boxes"] = torch.gather(enc_boxes, 1, idx.expand(-1, -1, 4))
         if self.with_masks:
             pix = self.mask_pixel_proj(levels[0])  # (B, mask_dim, h, w)
             q_emb = self.mask_embed_head(tgt)

@@ -10,9 +10,10 @@ from __future__ import annotations
 
 from contextlib import contextmanager
 
+import torch
 from torch import nn
 
-__all__ = ["bn_training"]
+__all__ = ["bn_training", "frozen_stats"]
 
 
 @contextmanager
@@ -26,3 +27,19 @@ def bn_training(model: nn.Module):
     finally:
         for m, mode in modes:
             m.training = mode
+
+
+@contextmanager
+def frozen_stats(model: nn.Module):
+    """Train-mode forwards that leave the running statistics as they were
+    on entry (flax's ``apply`` with ``mutable=["batch_stats"]`` whose
+    update is dropped): every ``running_*`` buffer is saved and written
+    back on exit."""
+    saved = [(b, b.clone()) for name, b in model.named_buffers() if name.rsplit(".", 1)[-1]
+             in ("running_mean", "running_var")]
+    try:
+        yield model
+    finally:
+        with torch.no_grad():
+            for b, v in saved:
+                b.copy_(v)

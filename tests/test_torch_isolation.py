@@ -1,5 +1,5 @@
 """The port imports torch, numpy, scipy and the standard library only:
-no jax, flax, optax, cv2, PIL, matplotlib, fontTools, and nothing of the
+no jax, flax, optax, cv2, PIL, matplotlib, pyparsing, fontTools, and nothing of the
 JAX package. The card's
 machine is not guaranteed any of those, so this is the CPU-side guard. The
 child process imports every module of the port with those blocked and runs
@@ -25,8 +25,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "rapiddoc_tpu_torch"
-BANNED = ("jax", "jaxlib", "flax", "optax", "cv2", "PIL", "matplotlib", "fontTools", "rapiddoc_tpu",
-          "aiohttp", "click", "requests", "fastapi", "yaml", "safetensors", "tokenizers")
+BANNED = ("jax", "jaxlib", "flax", "optax", "cv2", "PIL", "matplotlib", "pyparsing", "fontTools",
+          "rapiddoc_tpu", "aiohttp", "click", "requests", "fastapi", "yaml", "safetensors", "tokenizers")
 
 
 def _port_files() -> list[Path]:
